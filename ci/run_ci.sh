@@ -3,8 +3,8 @@
 #   1. build the native C++ components,
 #   2. run the full test suite on the CPU backend with 8 fake devices
 #      (exercises the distributed paths without hardware),
-#   3. smoke the multi-chip dryrun and the bench entry point in
-#      compile-only/CPU mode.
+#   3. smoke the multi-device dryrun on 8 virtual devices and compile the
+#      entry step.  The GPU proof is chip_smoke.py, run on a GPU machine.
 # Usage: sh ci/run_ci.sh
 set -e
 cd "$(dirname "$0")/.."
@@ -13,9 +13,9 @@ echo "== native build =="
 sh native/build.sh
 
 echo "== tests (CPU backend, 8 fake devices) =="
-python -m pytest tests/ -q
+JAX_PLATFORMS=cpu python -m pytest tests/ -q
 
-echo "== multi-chip dryrun (8 virtual devices) =="
+echo "== multi-device dryrun (8 virtual devices) =="
 XLA_FLAGS="--xla_force_host_platform_device_count=8" JAX_PLATFORMS=cpu \
     python -c "import __graft_entry__ as g; g.dryrun_multichip(8)"
 

@@ -1,4 +1,4 @@
-"""claragenomicsanalysis_tpu — a TPU-native long-read sequence-analysis engine.
+"""claragenomicsanalysis_tpu — a long-read sequence-analysis engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ClaraGenomicsAnalysis (NVIDIA's CUDA genomics library; reference fork

@@ -3,10 +3,10 @@
 Linear-memory global alignment: Myers bottom-row scores locate the optimal
 crossing column of the middle query row; recursion solves the two halves
 (reference: cudaaligner/src/hirschberg_myers_gpu.cu [U], which runs a
-device-side work stack).  The TPU design is a *level-batched* host driver:
+device-side work stack).  This design is a *level-batched* host driver:
 at each recursion level, ALL open fragments across the whole batch are padded
-into ONE forward + reverse Myers call (two scan programs per level, O(log L)
-levels), and all base-case fragments are solved by the canonical banded-NW
+into ONE forward + reverse Myers call (O(log L) levels), and all base-case
+fragments are solved by the canonical banded-NW
 kernel in power-of-two buckets.
 
 The produced path is optimal (cost == edit distance, asserted in tests) and
@@ -25,8 +25,8 @@ import jax.numpy as jnp
 
 from ..core.config import AlignerConfig
 from ..core.status import StatusType
-from ..ops import nw_band
-from ..ops.myers import myers_bottom_row_best as myers_bottom_row
+from ..ops import banded
+from ..ops.banded import myers_bottom_row
 from ..utils.genomeutils import encode
 
 BASE_Q = 32  # fragments with query side <= BASE_Q solve directly
@@ -58,27 +58,26 @@ def _pad_batch(seqs: list[np.ndarray], L: int, B: int | None = None
 def hirschberg_align_batch(queries: list[str], targets: list[str],
                            cfg: AlignerConfig, mesh=None,
                            sp_min_len: int | None = None,
-                           backend: str = "auto"):
+                           backend: str = "auto", interpret: bool = False):
     """Returns (paths, dists, statuses) matching models.aligner's contract.
 
     mesh + sp_min_len: levels whose padded sides reach sp_min_len compute
     their forward/reverse bottom rows on the 'sp' ring-wavefront kernel
-    (parallel/ring_nw.py) instead of single-chip Myers — the
-    sequence-parallel path for fragments too long for one chip's
-    VMEM-resident stripe.  Split selection is the same argmin over the
-    same unit-cost rows, so routing does not change results.
+    (parallel/ring_nw.py) instead of single-device Myers — the
+    sequence-parallel path for fragments too long for one device.  Split
+    selection is the same argmin over the same unit-cost rows, so routing
+    does not change results.
 
     sp_min_len=None with an sp-capable mesh AUTO-derives the threshold
-    from the Myers kernel's VMEM arithmetic
-    (core.bufferplan.myers_max_query_len): levels the single-chip fast
-    path cannot hold route to the ring with no manual tuning."""
+    from the device's memory (core.bufferplan.myers_max_query_len): levels
+    one device cannot hold route to the ring with no manual tuning."""
     if (sp_min_len is None and mesh is not None
             and mesh.shape.get("sp", 1) > 1):
         from ..core.bufferplan import myers_max_query_len
         sp_min_len = myers_max_query_len()
         from ..utils.logging import get_logger
         get_logger().info("hirschberg: auto sp threshold %d bases "
-                          "(VMEM-derived); longer levels use the "
+                          "(device-memory-derived); longer levels use the "
                           "ring-wavefront 'sp' axis", sp_min_len)
     B = len(queries)
     qcodes = [encode(s) for s in queries]
@@ -90,9 +89,9 @@ def hirschberg_align_batch(queries: list[str], targets: list[str],
         base = [f for f in frags if f.qhi - f.qlo <= BASE_Q]
         split = [f for f in frags if f.qhi - f.qlo > BASE_Q]
         if base:
-            _solve_base(base, qcodes, tcodes, pieces, backend)
-        frags = (_split_level(split, qcodes, tcodes, mesh, sp_min_len)
-                 if split else [])
+            _solve_base(base, qcodes, tcodes, pieces, backend, interpret)
+        frags = (_split_level(split, qcodes, tcodes, mesh, sp_min_len,
+                              backend, interpret) if split else [])
 
     paths = []
     dists = np.zeros(B, dtype=np.int64)
@@ -107,13 +106,11 @@ def hirschberg_align_batch(queries: list[str], targets: list[str],
 
 
 def _solve_base(base: list[_Frag], qcodes, tcodes, pieces,
-                backend: str = "auto") -> None:
+                backend: str = "auto", interpret: bool = False) -> None:
     """Solve small fragments with the configured banded-NW kernel (the
-    Aligner's backend string, threaded down so backend="xla"/"pallas-row"
-    users get the same leaf kernel everywhere), bucketed by power-of-two
-    band radius (r = max side covers any path)."""
-    from ..ops.banded import resolve
-    _, nw_fn, decode_fn = resolve(backend)
+    Aligner's backend string, threaded down so every level uses the same
+    kernel choice), bucketed by power-of-two band radius (r = max side
+    covers any path)."""
     buckets: dict[int, list[_Frag]] = {}
     for f in base:
         side = max(f.qhi - f.qlo, f.thi - f.tlo, 1)
@@ -131,14 +128,15 @@ def _solve_base(base: list[_Frag], qcodes, tcodes, pieces,
         tlen = np.zeros(Bp, np.int32)
         qlen[: len(fs)] = [len(x) for x in qs]
         tlen[: len(fs)] = [len(x) for x in ts]
-        _, tb = nw_fn(q, qlen, t, tlen, r)
-        sub = decode_fn(tb, qlen, tlen, r)
+        _, tb = banded.banded_nw(q, qlen, t, tlen, r, backend, interpret)
+        sub = banded.traceback_paths(tb, qlen, tlen, r)
         for f, p in zip(fs, sub):
             pieces[f.pair].append((f.qlo, f.tlo, p))
 
 
 def _split_level(split: list[_Frag], qcodes, tcodes, mesh=None,
-                 sp_min_len: int | None = None) -> list[_Frag]:
+                 sp_min_len: int | None = None, backend: str = "auto",
+                 interpret: bool = False) -> list[_Frag]:
     """One D&C level: forward + reverse bottom rows for every fragment in
     one batched call each; emit the two child fragments per input."""
     mids = [(f.qlo + f.qhi) // 2 for f in split]
@@ -171,8 +169,8 @@ def _split_level(split: list[_Frag], qcodes, tcodes, mesh=None,
         rows = jnp.asarray(
             ring_wavefront_nw_rows(q, qlen, t, tlen, mesh)[:, :Lt + 1])
     else:
-        rows = myers_bottom_row(q, qlen, t, tlen)[0]
-    # split columns computed ON DEVICE: only (n,) ints leave the chip,
+        rows = myers_bottom_row(q, qlen, t, tlen, backend, interpret)[0]
+    # split columns computed ON DEVICE: only (n,) ints leave the device,
     # instead of the full (Bp, Lt+1) forward+reverse row matrices
     jstars = np.asarray(_split_points(rows, jnp.asarray(tlen), half))
 

@@ -1,16 +1,16 @@
 """Myers-scored alignment with banded traceback.
 
 The reference's Myers aligner stores full PV/MV delta columns and backtraces
-them on-device (reference: cudaaligner/src/myers_gpu.cu [U]).  The TPU design
+them on-device (reference: cudaaligner/src/myers_gpu.cu [U]).  This design
 avoids materializing O(n*m/32) bit columns entirely:
 
-1. run the Myers bit-vector kernel (ops/myers.py) to get each pair's exact
+1. run the Myers bit-vector kernel (ops/banded.myers_bottom_row) to get each pair's exact
    edit distance s;
 2. re-run the canonical banded-NW kernel with band radius r >= s — except
-   pairs whose banded traceback array would exceed TB_BYTES_PER_PROBLEM,
-   which route to the linear-memory Hirschberg driver instead (optimal but
-   not canonical-tie-break paths; same caveat as the reference's
-   Hirschberg path).
+   pairs whose banded traceback array would exceed the traceback budget
+   (tb_budget), which route to the linear-memory Hirschberg driver instead
+   (optimal but not canonical-tie-break paths; same caveat as the
+   reference's Hirschberg path).
 
 Any optimal path stays within |i-j| <= s (each off-diagonal step costs 1),
 and for every cell on an optimal path the banded DP value equals the dense
@@ -21,40 +21,55 @@ power-of-two band radius so only O(log L) XLA executables exist.
 
 import numpy as np
 
+from ..core.bufferplan import dispatch_bytes
 from ..core.config import AlignerConfig
 from ..core.status import StatusType
-from ..ops import nw_band
-from ..ops.myers import myers_bottom_row_best as myers_bottom_row
+from ..ops import banded
 
 
-#: per-problem traceback budget for the XLA backend: above this, the
-#: UNPACKED banded tb array (Lq x W bytes each) costs more to materialize
-#: than a Hirschberg re-solve — long pairs route to the linear-memory path
-#: (the reference's own long-pair answer, hirschberg_myers_gpu.cu [U]).
+#: per-problem traceback budget for the XLA twin, which runs where no
+#: Triton kernel does (the CPU, and bands wider than
+#: nw_diag_pallas.MAX_RADIUS on a GPU).  Its traceback is one uint8 per
+#: cell of a band padded to 128 columns, at least 4x the kernel's 2-bit
+#: diagonal layout.  The bound is fixed, not taken from the device:
+#: Hirschberg's tie-breaks differ from the banded path's, so a bound that
+#: moved with the machine would move the output.  A twin band on a GPU is
+#: over 8k columns wide, so there every pair past 32 bases the twin would
+#: take re-solves in linear memory through Hirschberg (the reference's
+#: long-pair answer, hirschberg_myers_gpu.cu [U]).
 TB_BYTES_PER_PROBLEM = 1 << 18
 
-#: per-problem budget for the Pallas backend, counted on the PACKED tb
-#: (4 codes/byte).  Sized by the device decode kernel's VMEM arithmetic:
-#: per grid step it holds the packed block double-buffered (2x PB int8)
-#: plus the (Lq/4, W) int32 expansion scratch (4x PB), so PB <=
-#: 14 MiB / 6.  Routing matters twice over: a 3 kb overlap span at
-#: ~10 % combined error needs r ~= 512 (787 KiB packed), and a 5 kb
-#: span in the Lq=8192 bucket at r=512 needs 2.13 MiB — 1.7 % over the
-#: old flat 2 MiB cap, which pushed HALF the 1000x5kb correction spans
-#: onto the O(Lq*Lt) Hirschberg path (129 s of a 228 s run,
-#: 0820_1512_correct_full_s8.log).  Hirschberg costs 2x the FULL dense
-#: DP; the banded path at r=512 is ~30,000x fewer cells.
-TB_BYTES_PER_PROBLEM_PACKED = (14 << 20) // 6
 
-#: device-memory budget per banded re-run dispatch (bounds tb bytes in
-#: flight; mirrors Aligner.MEM_BUDGET_PER_DISPATCH)
-MEM_BUDGET_PER_DISPATCH = 1 << 28
+def tb_budget(kind: str) -> int:
+    """Per-problem traceback budget of a kernel kind.  The Triton kernel's
+    2-bit traceback lives in device memory and is decoded on the host, so
+    its only bound is that one dispatch (core.bufferplan.dispatch_bytes)
+    still holds the minimum chunk of 8 problems: about 120 MiB per problem
+    on an 80 GB card at JAX's default memory share, where a 32 kb span at
+    the kernel's widest pow2 radius (2,048) needs 32 MiB."""
+    if kind == "pallas":
+        return dispatch_bytes() // 8
+    return TB_BYTES_PER_PROBLEM
+
+
+def _infeasible(Lq: int, Lt: int, r: int, backend: str,
+                interpret: bool) -> bool:
+    kind = banded.nw_kind(backend, r, interpret)
+    return banded.tb_bytes_per_problem(Lq, Lt, r, kind) > tb_budget(kind)
+
+
+def _chunk(Lq: int, Lt: int, r: int, n: int, backend: str,
+           interpret: bool) -> int:
+    kind = banded.nw_kind(backend, r, interpret)
+    per = max(1, banded.tb_bytes_per_problem(Lq, Lt, r, kind))
+    return max(8, min(n, dispatch_bytes() // per))
 
 
 def banded_escalate_align_batch(q, qlen, t, tlen, cfg: AlignerConfig,
                                 backend: str = "auto",
                                 queries: list[str] | None = None,
-                                targets: list[str] | None = None):
+                                targets: list[str] | None = None,
+                                interpret: bool = False):
     """Score-free variant of myers_align_batch: SKIP the O(Lq*Lt) Myers
     scoring pass and run the banded kernel directly at escalating pow2
     band radii.
@@ -64,21 +79,16 @@ def banded_escalate_align_batch(q, qlen, t, tlen, cfg: AlignerConfig,
     within |i - j| <= s <= r, so the band contains the dense optimum:
     s' == s and the banded traceback IS the canonical dense path —
     identical to what myers_align_batch would return.  Pairs with
-    s' > r double the radius and redo; radii whose banded layouts are
-    VMEM/tb-budget-infeasible route to Hirschberg (optimal paths,
-    non-canonical tie-breaks — the same long-span contract as the Myers
-    path).
+    s' > r double the radius and redo; radii whose tracebacks exceed the
+    budget route to Hirschberg (optimal paths, non-canonical tie-breaks —
+    the same long-span contract as the Myers path).
 
     Why: the Myers pass costs Lq*Lt cells per pair regardless of
-    similarity — 36 Tcells for one 400x3kb correction part, ~9 s of its
-    11.65 s align stage — while the banded pass it gates costs
-    Lq*W(r) ~ 100x less on well-matched overlap spans.  The start
+    similarity, while the banded pass it gates costs Lq*W(r), ~100x less
+    on well-matched overlap spans.  The start
     radius pow2(max(|lq-lt|, (lq+lt)/12)) resolves ~10 %-divergent
     spans in one round."""
     from ..utils.profiling import trace_range
-    from ..ops.banded import resolve, tb_bytes_per_problem
-    kind, nw_fn, decode_fn = resolve(backend)
-    use_pallas = kind != "xla"
     B = q.shape[0]
     Lq, Lt = q.shape[1], t.shape[1]
     qlen = np.asarray(qlen)
@@ -86,20 +96,10 @@ def banded_escalate_align_batch(q, qlen, t, tlen, cfg: AlignerConfig,
     paths: list[list[int]] = [[] for _ in range(B)]
     dists = np.zeros(B, np.int32)
     statuses = np.full(B, int(StatusType.SUCCESS))
-    tb_cap = (TB_BYTES_PER_PROBLEM_PACKED if use_pallas
-              else TB_BYTES_PER_PROBLEM)
 
     def infeasible(r):
-        if (queries is not None
-                and tb_bytes_per_problem(Lq, Lt, r, kind) > tb_cap):
-            return True
-        if not use_pallas:
-            return False
-        from ..ops.nw_band_pallas import ROW_VMEM_BUDGET, vmem_row_bytes
-        from ..ops.nw_diag_pallas import VMEM_BLOCK_BUDGET, vmem_block_bytes
         return (queries is not None
-                and vmem_block_bytes(Lq, Lt, r) > VMEM_BLOCK_BUDGET
-                and vmem_row_bytes(Lq, Lt, r) > ROW_VMEM_BUDGET)
+                and _infeasible(Lq, Lt, r, backend, interpret))
 
     r_of: dict[int, int] = {}
     hirsch: list[int] = []
@@ -122,17 +122,20 @@ def banded_escalate_align_batch(q, qlen, t, tlen, cfg: AlignerConfig,
             buckets.setdefault(r, []).append(b)
         next_r: dict[int, int] = {}
         for r, idxs in sorted(buckets.items()):
-            per = max(1, tb_bytes_per_problem(Lq, Lt, r, kind))
-            chunk = max(8, min(len(idxs), MEM_BUDGET_PER_DISPATCH // per))
+            chunk = _chunk(Lq, Lt, r, len(idxs), backend, interpret)
             for s0 in range(0, len(idxs), chunk):
                 sel = np.array(idxs[s0: s0 + chunk])
+                rows = banded.pow2_rows(sel)
                 with trace_range("aligner.banded_escalate.nw"):
-                    sc, tb = nw_fn(q[sel], qlen[sel], t[sel], tlen[sel], r)
+                    sc, tb = banded.banded_nw(q[rows], qlen[rows], t[rows],
+                                              tlen[rows], r, backend,
+                                              interpret)
                     sc = np.asarray(sc)[: len(sel)]
                 resolved = sc <= r
                 if resolved.any():
                     with trace_range("aligner.banded_escalate.decode"):
-                        sub = decode_fn(tb, qlen[sel], tlen[sel], r)
+                        sub = banded.traceback_paths(tb, qlen[rows],
+                                                     tlen[rows], r)
                     for k, b in enumerate(sel):
                         if resolved[k]:
                             paths[b] = sub[k]
@@ -153,7 +156,7 @@ def banded_escalate_align_batch(q, qlen, t, tlen, cfg: AlignerConfig,
         with trace_range("aligner.myers.hirschberg"):
             h_paths, h_dists, _ = hirschberg_align_batch(
                 [queries[b] for b in hirsch], [targets[b] for b in hirsch],
-                cfg, backend=backend)
+                cfg, backend=backend, interpret=interpret)
         for k, b in enumerate(hirsch):
             paths[b] = h_paths[k]
             dists[b] = h_dists[k]
@@ -163,19 +166,14 @@ def banded_escalate_align_batch(q, qlen, t, tlen, cfg: AlignerConfig,
 def myers_align_batch(q, qlen, t, tlen, cfg: AlignerConfig,
                       backend: str = "auto",
                       queries: list[str] | None = None,
-                      targets: list[str] | None = None):
+                      targets: list[str] | None = None,
+                      interpret: bool = False):
     """Returns (paths, dists, statuses) for the packed batch."""
-    from ..ops.banded import resolve, tb_bytes_per_problem
-    # resolve() is the single validator: unknown backend strings raise
-    # ValueError here exactly as in models/aligner._run_ukkonen (a typo
-    # like "palas" must not silently become the XLA path)
-    kind, nw_fn, decode_fn = resolve(backend)
-    use_pallas = kind != "xla"
-
     from ..utils.profiling import trace_range
     B = q.shape[0]
     with trace_range("aligner.myers.score"):
-        _, scores = myers_bottom_row(q, qlen, t, tlen)
+        _, scores = banded.myers_bottom_row(q, qlen, t, tlen, backend,
+                                            interpret)
         scores = np.asarray(scores)
     qlen = np.asarray(qlen)
     tlen = np.asarray(tlen)
@@ -186,51 +184,29 @@ def myers_align_batch(q, qlen, t, tlen, cfg: AlignerConfig,
     radii = np.maximum(scores, 1)
     buckets: dict[int, list[int]] = {}
     hirsch: list[int] = []
-    Lq = q.shape[1]
-    tb_cap = (TB_BYTES_PER_PROBLEM_PACKED if use_pallas
-              else TB_BYTES_PER_PROBLEM)
-    # per-problem tb bytes of the SELECTED kernel layout (the Pallas kinds
-    # pack 2-bit codes; sizing with the XLA 128-lane band_width would
-    # overestimate up to ~5x and mis-route long low-error pairs to the
-    # slow Hirschberg path)
-    Lt = t.shape[1]
-
-    def band_vmem_infeasible(r):
-        # neither Pallas banded layout fits VMEM at this (Lq, Lt, r) —
-        # e.g. r=1024 needs 20.77 MiB in the row layout (the round-5
-        # correct_full crash, 0820_1318_correct_full.log).  Such wide-
-        # band spans are exactly what the linear-memory Hirschberg path
-        # exists for; routing them there also keeps them off banded.py's
-        # slow XLA-twin safety net.
-        if not use_pallas:
-            return False
-        from ..ops.nw_band_pallas import ROW_VMEM_BUDGET, vmem_row_bytes
-        from ..ops.nw_diag_pallas import VMEM_BLOCK_BUDGET, vmem_block_bytes
-        return (vmem_block_bytes(Lq, Lt, r) > VMEM_BLOCK_BUDGET
-                and vmem_row_bytes(Lq, Lt, r) > ROW_VMEM_BUDGET)
-
+    Lq, Lt = q.shape[1], t.shape[1]
     for b in range(B):
         if qlen[b] == 0 and tlen[b] == 0:
             continue                      # batch-padding rows: empty path
         r = 1 << int(radii[b] - 1).bit_length()
         r = max(r, 8)
         if (queries is not None and b < len(queries)
-                and (tb_bytes_per_problem(Lq, Lt, r, kind) > tb_cap
-                     or band_vmem_infeasible(r))):
+                and _infeasible(Lq, Lt, r, backend, interpret)):
             hirsch.append(b)
         else:
             buckets.setdefault(r, []).append(b)
 
     for r, idxs in sorted(buckets.items()):
         # chunk each bucket so per-dispatch tb bytes stay within budget
-        per = max(1, tb_bytes_per_problem(Lq, Lt, r, kind))
-        chunk = max(8, min(len(idxs), MEM_BUDGET_PER_DISPATCH // per))
+        chunk = _chunk(Lq, Lt, r, len(idxs), backend, interpret)
         for s0 in range(0, len(idxs), chunk):
-            sel = np.array(idxs[s0: s0 + chunk])
+            rows = banded.pow2_rows(idxs[s0: s0 + chunk])
             with trace_range("aligner.myers.banded"):
-                _, tb = nw_fn(q[sel], qlen[sel], t[sel], tlen[sel], r)
+                _, tb = banded.banded_nw(q[rows], qlen[rows], t[rows],
+                                         tlen[rows], r, backend, interpret)
             with trace_range("aligner.myers.decode"):
-                sub_paths = decode_fn(tb, qlen[sel], tlen[sel], r)
+                sub_paths = banded.traceback_paths(tb, qlen[rows],
+                                                   tlen[rows], r)
             for k, b in enumerate(idxs[s0: s0 + chunk]):
                 paths[b] = sub_paths[k]
 
@@ -239,7 +215,7 @@ def myers_align_batch(q, qlen, t, tlen, cfg: AlignerConfig,
         with trace_range("aligner.myers.hirschberg"):
             h_paths, _, _ = hirschberg_align_batch(
                 [queries[b] for b in hirsch], [targets[b] for b in hirsch],
-                cfg, backend=backend)
+                cfg, backend=backend, interpret=interpret)
         for k, b in enumerate(hirsch):
             paths[b] = h_paths[k]
     return paths, scores, statuses

@@ -12,6 +12,7 @@ import sys
 
 from .core.config import BatchSize, MapperConfig, PipelineConfig
 from .core.status import OutputType, StatusType
+from .utils.compile_cache import enable_compile_cache
 from .utils.logging import initialize_logger
 from .utils.profiling import stage_timings
 
@@ -67,7 +68,8 @@ def cmd_align(args) -> int:
     max_q = max(len(qp.get_sequence_by_id(i).seq) for i in range(n))
     max_t = max(len(tp.get_sequence_by_id(i).seq) for i in range(n))
     # -d: hirschberg-myers puts the devices on the 'sp' ring (one pair's
-    # DP sharded by target stripes; threshold auto-derived from VMEM),
+    # DP sharded by target stripes; threshold auto-derived from device
+    # memory),
     # the batch algorithms put them on the 'data' axis.
     mesh = None
     if getattr(args, "devices", 1) > 1:
@@ -213,8 +215,7 @@ def cmd_correct(args) -> int:
     cfg = CorrectConfig(mapper=_mapper_cfg(args),
                         window_length=args.window_length,
                         max_support=args.max_support,
-                        aligner_band_radius=args.band_radius,
-                        poa_backend=args.poa_backend)
+                        aligner_band_radius=args.band_radius)
     res = correct_reads(parser, cfg, mesh=_cli_mesh(args),
                         work_dir=args.work_dir or None)
     if args.output:
@@ -335,18 +336,14 @@ def main(argv=None) -> int:
     co.add_argument("input")
     _add_mapper_flags(co)
     co.add_argument("--window-length", type=int, default=128,
-                    help="backbone window (128 measured faster AND more "
-                         "accurate than 500, and fits the v2 POA kernels)")
+                    help="backbone window (128 measured more accurate "
+                         "than 500)")
     co.add_argument("--max-support", type=int, default=15,
                     help="supporting segments per POA window")
     co.add_argument("--band-radius", type=int, default=256,
                     help="per-overlap re-alignment band radius")
     co.add_argument("--work-dir", default="",
                     help="checkpoint dir: run resumes after a crash")
-    co.add_argument("--poa-backend", default="auto",
-                    choices=("auto", "xla", "pallas", "pallas2"),
-                    help="POA kernel for the polish stage (bit-identical; "
-                         "perf knob)")
     co.add_argument("-o", "--output", default="",
                     help="corrected FASTA path (default: stdout)")
     co.add_argument("-d", "--devices", type=int, default=1,
@@ -356,6 +353,7 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
     initialize_logger(args.log_level)
+    enable_compile_cache()
     if args.profile_dir:
         import jax
         with jax.profiler.trace(args.profile_dir):

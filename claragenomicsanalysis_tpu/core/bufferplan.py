@@ -4,19 +4,15 @@ cudapoa/src/allocate_block.cpp [U]).
 
 XLA owns actual device memory, so nothing here allocates; what survives is the
 *planning* arithmetic: given a device-memory budget, how many problems fit in
-one statically-shaped batch.  Shape-static padding is the TPU analog of slab
+one statically-shaped batch.  Shape-static padding is the XLA analog of slab
 carving.
 """
 
+import functools
 import os
 from dataclasses import dataclass
 
 from .config import AlignerConfig, BatchSize
-
-#: usable per-core VMEM for planning: 16 MB hardware (v5e) minus compiler
-#: headroom — the same figure ops/poa_pallas2.VMEM_BUDGET plans against.
-#: CGA_VMEM_BUDGET_BYTES overrides it (other TPU generations; tests).
-VMEM_BUDGET_BYTES = 14 * 2**20
 
 
 @dataclass(frozen=True)
@@ -43,19 +39,59 @@ def plan_aligner_batch(cfg: AlignerConfig, mem_budget_bytes: int) -> BufferPlan:
     return BufferPlan(n, per, n * per)
 
 
-def myers_max_query_len(vmem_budget_bytes: int | None = None) -> int:
-    """Longest padded query whose Myers bit-vector state tile fits one
-    core's VMEM: the kernel keeps Pv + Mv + 4 Peq planes + the last-word
-    mask resident, each (Wq, 8, 128) uint32 (ops/myers_pallas.py), i.e.
-    7 x 4 KiB per 32-base query word.  Beyond this the single-chip fast
-    path is gone — exactly when Hirschberg levels should route to the
-    'sp' ring-wavefront axis (align/hirschberg.py auto-routing,
-    SURVEY §5.7)."""
-    if vmem_budget_bytes is None:
-        vmem_budget_bytes = int(os.environ.get("CGA_VMEM_BUDGET_BYTES", 0)
-                                ) or VMEM_BUDGET_BYTES
-    wq = max(1, vmem_budget_bytes // (7 * 8 * 128 * 4))
-    return wq * 32
+@functools.cache
+def device_memory_bytes() -> int:
+    """Memory of the first local device: the allocator's limit on a GPU,
+    physical host memory on the CPU backend (which reports none)."""
+    import jax
+    stats = jax.local_devices()[0].memory_stats() or {}
+    if stats.get("bytes_limit"):
+        return int(stats["bytes_limit"])
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def dispatch_bytes(memory_bytes: int | None = None) -> int:
+    """Device bytes one banded-NW dispatch may hold in tracebacks: a 64th
+    of the device's memory, so the score, sequence and decode buffers of
+    the dispatch in flight and the one being downloaded fit beside it."""
+    if memory_bytes is None:
+        memory_bytes = device_memory_bytes()
+    return memory_bytes // 64
+
+
+#: device bytes one anchor may cost at the peak of a mapper pair step: the
+#: expansion's six fields and its fill temporaries, the chain sort's keys
+#: and payload copies, and the compaction, with room to spare (an H100 peaked
+#: at 5.53 GB, about 150 B per anchor, on a 2000 x 10 kb all-vs-all pair of
+#: about 37 M anchors)
+ANCHOR_BYTES = 256
+
+
+def anchor_capacity(memory_bytes: int | None = None) -> int:
+    """Most anchors one (query, target) index pair may expand to before it
+    reports EXCEEDED_MAX_ANCHORS: the largest power of two whose anchors
+    fit the device's memory at ANCHOR_BYTES each, at most 2**30 (the
+    int32 offsets of the expansion)."""
+    if memory_bytes is None:
+        memory_bytes = device_memory_bytes()
+    n = max(memory_bytes // ANCHOR_BYTES, 1 << 20)
+    return min(1 << (n.bit_length() - 1), 1 << 30)
+
+
+#: device bytes one Hirschberg level spends per padded query base of a
+#: pair: int32 forward + reverse bottom rows over a target as long as the
+#: query (8 B), the strip carry (1 B) and Peq masks (0.5 B), rounded up
+MYERS_LEVEL_BYTES_PER_BASE = 16
+
+
+def myers_max_query_len(memory_bytes: int | None = None) -> int:
+    """Longest padded query whose Myers level one device holds in a quarter
+    of its memory.  Beyond this a level should route to the 'sp'
+    ring-wavefront axis (align/hirschberg.py auto-routing, SURVEY §5.7)."""
+    if memory_bytes is None:
+        memory_bytes = device_memory_bytes()
+    return max(32, memory_bytes // 4 // MYERS_LEVEL_BYTES_PER_BASE
+               // 32 * 32)
 
 
 def plan_poa_batch(bs: BatchSize, mem_budget_bytes: int) -> BufferPlan:

@@ -18,7 +18,7 @@ class AlignerConfig:
     """Static-shape plan for one aligner batch.
 
     The reference sizes device slabs from (max_query_length,
-    max_target_length, max_alignments); on TPU the same numbers become the
+    max_target_length, max_alignments); here the same numbers become the
     padded array shapes of one XLA program.
     """
 
@@ -32,7 +32,7 @@ class AlignerConfig:
 
     @property
     def band_width(self) -> int:
-        """Number of band cells per DP row, padded to the TPU lane count."""
+        """Number of band cells per DP row of the XLA twin, padded to 128."""
         return _round_up(2 * self.band_radius + 1, 128)
 
     @property
@@ -134,20 +134,14 @@ class CorrectConfig:
     cudapoa/batch.hpp [U] is the POA surface it drives)."""
 
     mapper: MapperConfig = field(default_factory=MapperConfig)
-    # backbone window size (bases).  128 measured BOTH faster AND more
-    # accurate than the Racon-style 500 (CPU A/B, 60x1.5kb @5%: reduction
-    # 0.786 vs 0.609, wall 182 vs 528 s — bench_logs/quality_windowlen_
-    # cpu.log): short windows keep supports locally consistent, and only
-    # <=128-base windows fit the v2 lockstep POA kernels' VMEM planes at
-    # S=P=16 (docs/POA_V2.md), so 500 also forced the slow v1 polish path.
+    # backbone window size (bases).  128 measured more accurate than the
+    # Racon-style 500 (CPU A/B, 60x1.5kb @5%: edit-distance reduction
+    # 0.786 vs 0.609): short windows keep supports locally consistent.
     window_length: int = 128
-    # supporting segments per window.  7 measured BOTH faster AND more
-    # accurate than 15 on chip at two scales (400x3kb: 48.7k vs ~26k
-    # bases/s, reduction 0.8976; 1000x5kb: 41.5k vs 35.1k, 0.9335 vs
-    # 0.9285 — bench_logs/0820_1703_correct_full5{,_s8}.log): past ~7
-    # supports the consensus saturates and extra noisy rows average
-    # error back in, while the pileup depth caps (P = depth) grow the
-    # POA cost superlinearly.
+    # supporting segments per window.  7 measured more accurate than 15
+    # (1000x5kb: reduction 0.9335 vs 0.9285): past ~7 supports the
+    # consensus saturates and extra noisy rows average error back in,
+    # while the POA cost grows superlinearly with the pileup depth.
     max_support: int = 7
     min_matched_bases: int = 8        # matched pairs a support must place
     aligner_band_radius: int = 256    # per-overlap re-alignment band
@@ -156,6 +150,3 @@ class CorrectConfig:
     # every disagreeing column is a 1-vs-1 tie decided by tie-break order,
     # which averages errors in rather than out
     min_supports_for_poa: int = 2
-    # POA kernel backend for the polish stage ("auto" | "xla" | "pallas" |
-    # "pallas2"); all are bit-identical, so this is a pure perf knob
-    poa_backend: str = "auto"

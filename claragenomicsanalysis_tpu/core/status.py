@@ -4,7 +4,7 @@ Mirrors the per-problem soft-error discipline of the reference
 (reference: cudaaligner/include/claragenomics/cudaaligner/cudaaligner.hpp [U],
 cudapoa/include/claragenomics/cudapoa/cudapoa.hpp [U]): a batch never hard-fails
 because one problem overflowed a static limit — the problem gets a status code
-and the rest of the batch proceeds.  On TPU this discipline is load-bearing:
+and the rest of the batch proceeds.  Here this discipline is load-bearing:
 every array is statically shaped and padded, so "does not fit" MUST become a
 status, not an exception, to keep the XLA program shape-stable.
 """
@@ -49,7 +49,7 @@ class AlignmentState(enum.IntEnum):
     Orientation convention (SAM): the *query* is aligned against the *target*;
     INSERTION consumes a query base, DELETION consumes a target base.
 
-    Canonical tie-break for all NW implementations (oracle and TPU kernels
+    Canonical tie-break for all NW implementations (oracle and device kernels
     alike): prefer MATCH/MISMATCH (diagonal), then DELETION (target-consuming),
     then INSERTION.  This is OUR canonical rule (documented, deterministic);
     all implementations in this package must agree bit-for-bit.

@@ -3,7 +3,7 @@
 Mirrors the reference's device pipeline (reference: cudapoa/src/
 cudapoa_topsort.cuh, cudapoa_nw.cuh, cudapoa_add_alignment.cuh,
 cudapoa_generate_consensus.cuh, cudapoa_generate_msa.cuh [U]) with fully
-deterministic canonical rules (ours, documented here — the TPU implementation
+deterministic canonical rules (ours, documented here — the device implementation
 must match these bit-for-bit):
 
 1.  **Topological order**: level-based Kahn. level(u) = longest path length
@@ -60,7 +60,7 @@ from ..utils.genomeutils import BASES
 class PoaGraph:
     """Adjacency-list POA graph (host oracle form).
 
-    The TPU twin stores the same information as padded SoA arrays
+    The device twin stores the same information as padded SoA arrays
     (models/poa.py); field names are kept parallel on purpose.
     """
 

@@ -77,3 +77,45 @@ def evaluate_paf(paf_overlaps, truth: dict[str, TruthRecord],
         "recall": len(hit) / len(truth_set) if truth_set else 1.0,
         "precision": len(hit) / len(reported) if reported else 1.0,
     }
+
+
+def read_truth_seqs(genome: str, records) -> list[str]:
+    """Each simulated read's error-free source sequence (its genome span,
+    reverse-complemented for '-' strand reads), from TruthRecords."""
+    from .utils.genomeutils import reverse_complement
+    out = []
+    for r in records:
+        span = genome[r.start:r.end]
+        out.append(reverse_complement(span) if r.strand == "-" else span)
+    return out
+
+
+def edit_distances(pairs: list[tuple[str, str]], chunk: int = 128
+                   ) -> list[int]:
+    """Global edit distance of each (a, b) pair on the device (Myers bottom
+    rows, ops/banded.myers_bottom_row), in pow2-padded chunks."""
+    import numpy as np
+
+    from .ops.banded import myers_bottom_row
+    from .utils.genomeutils import encode
+
+    def p2(x):
+        return max(64, 1 << (max(x, 1) - 1).bit_length())
+
+    out = []
+    for s0 in range(0, len(pairs), chunk):
+        ch = pairs[s0: s0 + chunk]
+        Lq = p2(max(len(a) for a, _ in ch))
+        Lt = p2(max(len(b) for _, b in ch))
+        B = p2(len(ch))
+        q = np.full((B, Lq), -1, np.int8)
+        t = np.full((B, Lt), -1, np.int8)
+        qlen = np.zeros(B, np.int32)
+        tlen = np.zeros(B, np.int32)
+        for i, (a, b) in enumerate(ch):
+            q[i, : len(a)] = encode(a)
+            t[i, : len(b)] = encode(b)
+            qlen[i], tlen[i] = len(a), len(b)
+        _, sc = myers_bottom_row(q, qlen, t, tlen)
+        out.extend(int(x) for x in np.asarray(sc)[: len(ch)])
+    return out

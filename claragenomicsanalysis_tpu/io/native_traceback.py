@@ -33,23 +33,27 @@ _lib.cga_tb_free.argtypes = [ctypes.c_void_p]
 
 
 def decode(tb: np.ndarray, qlen: np.ndarray, tlen: np.ndarray,
-           band_radius: int, extended: bool = False, packed: bool = False):
-    """Decode a traceback array: (Lq, B, W) one code per byte, or — with
-    packed — (ceil(Lq/4), B, W) four 2-bit codes per byte (the Pallas
-    kernel's format).
+           band_radius: int, extended: bool = False, layout: str = "row"):
+    """Decode a traceback array: layout "row" is (Lq, B, W) one code per
+    byte (ops/nw_band.banded_nw); "diag" is (B, Dpad/4, r+1) with four
+    anti-diagonals per byte (ops/nw_diag_pallas).
 
     Returns (paths, cigars): per-problem forward-order AlignmentState code
     lists and CIGAR strings (compact M/I/D unless extended)."""
+    if layout not in ("row", "diag"):
+        raise ValueError(f"unknown traceback layout {layout!r}")
     tb = np.ascontiguousarray(np.asarray(tb).view(np.uint8))
     qlen = np.ascontiguousarray(qlen, dtype=np.int32)
     tlen = np.ascontiguousarray(tlen, dtype=np.int32)
-    rows, B, W = tb.shape
-    Lq = rows * 4 if packed else rows
+    if layout == "diag":
+        B, rows, W = tb.shape
+    else:
+        rows, B, W = tb.shape
     h = _lib.cga_tb_decode(
-        tb.ctypes.data_as(ctypes.c_void_p), Lq, B, W,
+        tb.ctypes.data_as(ctypes.c_void_p), rows, B, W,
         qlen.ctypes.data_as(ctypes.c_void_p),
         tlen.ctypes.data_as(ctypes.c_void_p),
-        band_radius, 1 if extended else 0, 1 if packed else 0)
+        band_radius, 1 if extended else 0, 1 if layout == "diag" else 0)
     if not h:
         raise MemoryError("native traceback allocation failed")
     try:

@@ -6,7 +6,7 @@ cudaaligner/include/claragenomics/cudaaligner/aligner.hpp, alignment.hpp [U]):
 ``align_all`` / ``get_alignments`` / ``reset``; each result exposes the edit
 path, CIGAR, pretty 3-line view and a per-problem StatusType.
 
-TPU-native behavior differences from the reference (by design):
+Behavior differences from the reference (by design):
 - ``align_all`` dispatches ONE jitted XLA program over the whole padded batch
   (no streams; JAX async dispatch overlaps host packing with device compute).
 - Problems that exceed static limits get a status and an empty result instead
@@ -14,7 +14,8 @@ TPU-native behavior differences from the reference (by design):
   (add_alignment returns the would-be status too, like the reference).
 
 Algorithms:
-- ``ukkonen`` (default): banded NW via ops.nw_band (scan or Pallas backend).
+- ``ukkonen`` (default): banded NW via ops.banded (the Triton kernel on a GPU,
+  the XLA scan twin elsewhere).
 - ``myers``: Myers bit-vector edit distance with banded traceback
   (ops.myers), for pairs whose edit distance fits the band at traceback time.
 - ``hirschberg-myers``: linear-memory divide and conquer for long pairs
@@ -68,6 +69,8 @@ class Aligner:
         if algorithm not in ("ukkonen", "myers", "hirschberg-myers",
                              "banded-escalate"):
             raise ValueError(f"unknown algorithm {algorithm!r}")
+        from ..ops.banded import check_backend
+        check_backend(backend)
         self.config = config
         self.algorithm = algorithm
         self.backend = backend
@@ -118,7 +121,7 @@ class Aligner:
     def _pack(self):
         """Pack to padded arrays; the batch dim is bucketed to the next power
         of two so repeated batches of similar size reuse one XLA executable
-        (the TPU analog of the reference's fixed-capacity device slabs)."""
+        (the analog of the reference's fixed-capacity device slabs)."""
         cfg = self.config
         B = len(self._queries)
         Bpad = max(8, 1 << (B - 1).bit_length())
@@ -177,20 +180,13 @@ class Aligner:
             ))
         return out
 
-    #: device-memory budget per dispatch (bounds traceback bytes in flight
-    #: when the adaptive band is wide); core.bufferplan turns this into a
-    #: problems-per-batch count, the reference's batched_device_matrices
-    #: slab arithmetic
-    MEM_BUDGET_PER_DISPATCH = 1 << 28
-
     def _run_ukkonen(self, q, qlen, t, tlen):
         """Banded NW with the reference's adaptive Ukkonen band
         p + |lq - lt| (reference: ukkonen_gpu.cu band sizing [U]): a pair
         whose lengths differ by more than the configured radius is still
         alignable — the band is widened per pair.  Pairs are bucketed by
         power-of-two widening so only O(log L) executables exist."""
-        from ..ops import nw_band
-        from ..ops.banded import resolve
+        from ..ops import banded, nw_band
         cfg = self.config
         mesh_dp = (self.mesh is not None
                    and self.mesh.shape.get("data", 1) > 1)
@@ -198,11 +194,13 @@ class Aligner:
             # batch sharded over the mesh 'data' axis (bit-identical merge
             # by construction; the sharded program is the XLA scan twin)
             from ..parallel.shard import sharded_banded_nw
-            fn = (lambda qq, ql, tt, tl, r:
-                  sharded_banded_nw(qq, ql, tt, tl, r, self.mesh))
-            decode = resolve("xla")[2]
+
+            def fn(qq, ql, tt, tl, r):
+                sc, tb = sharded_banded_nw(qq, ql, tt, tl, r, self.mesh)
+                return sc, banded.Traceback("xla", tb)
         else:
-            _, fn, decode = resolve(self.backend)
+            def fn(qq, ql, tt, tl, r):
+                return banded.banded_nw(qq, ql, tt, tl, r, self.backend)
         qlen = np.asarray(qlen)
         tlen = np.asarray(tlen)
         B = q.shape[0]
@@ -217,18 +215,21 @@ class Aligner:
         scores = np.zeros(B, dtype=np.int32)
         from dataclasses import replace as dc_replace
 
-        from ..core.bufferplan import plan_aligner_batch
+        # the per-dispatch device budget bounds traceback bytes in flight
+        # when the adaptive band is wide; plan_aligner_batch turns it into
+        # a problems-per-batch count (the reference's
+        # batched_device_matrices slab arithmetic)
+        from ..core.bufferplan import dispatch_bytes, plan_aligner_batch
         for r, idxs in sorted(buckets.items()):
             plan = plan_aligner_batch(dc_replace(cfg, band_radius=r),
-                                      self.MEM_BUDGET_PER_DISPATCH)
+                                      dispatch_bytes())
             chunk = plan.problems_per_batch
             for s0 in range(0, len(idxs), chunk):
                 sel = np.array(idxs[s0: s0 + chunk])
-                sc, tb = fn(q[sel], qlen[sel], t[sel], tlen[sel], r)
+                rows = banded.pow2_rows(sel)
+                sc, tb = fn(q[rows], qlen[rows], t[rows], tlen[rows], r)
                 scores[sel] = np.asarray(sc)[: len(sel)]
-                # Pallas kinds decode on device: only path bytes leave
-                # the chip; the XLA kind decodes its int8 tb on host
-                sub = decode(tb, qlen[sel], tlen[sel], r)
+                sub = banded.traceback_paths(tb, qlen[rows], tlen[rows], r)
                 for k, b in enumerate(sel):
                     paths[b] = sub[k]
 
@@ -246,11 +247,11 @@ def create_aligner(max_query_length: int, max_target_length: int,
                    sp_min_len: int | None = None) -> Aligner:
     """Factory mirroring the reference's create_aligner [U].
 
+    backend: "auto" | "pallas" | "xla" kernel choice (ops/banded.py).
     mesh: with a 'data' axis > 1, ukkonen batches shard across devices;
     with an 'sp' axis > 1, hirschberg-myers levels too long for one
-    chip's VMEM-resident Myers state route to the ring-wavefront kernel
-    automatically (threshold from core.bufferplan.myers_max_query_len;
-    sp_min_len overrides it)."""
+    device route to the ring-wavefront kernel automatically (threshold
+    from core.bufferplan.myers_max_query_len; sp_min_len overrides it)."""
     if alignment_type != AlignmentType.GLOBAL_ALIGNMENT:
         raise ValueError("only global alignment is supported")
     cfg = AlignerConfig(max_query_length=max_query_length,

@@ -1,144 +1,131 @@
-"""Banded-NW device-kernel dispatch — ONE knob for the three consumers
-(models/aligner._run_ukkonen, align/myers_aligner, align/hirschberg).
+"""Kernel selection for the two DP operations, in one place.
 
-Two bit-identical Pallas kernels produce banded edit paths (reference
-counterpart: the Ukkonen kernel + backtrace phases of
-cudaaligner/src/ukkonen_gpu.cu [U]):
-
-- "row"  (ops/nw_band_pallas.py): query-row sweep; pays a log2(W)-step
-  min-plus prefix scan per row for the in-row deletion chain.
-- "diag" (ops/nw_diag_pallas.py): anti-diagonal sweep; the chain
-  disappears (cells on a diagonal are independent), one roll + 3-way min.
-
-On-chip A/B (scripts/ablate_nw_diag.py, v5e 2026-08-19, B=1024 512 bp
-r=64): diag 148.0 vs row 93.7 Gcells/s; e2e with host decode 480 vs 391
-alignments/s.  Hence DEFAULT_KERNEL = "diag".  Both layouts decode on
-device via ops/tb_decode_pallas (only packed path bytes leave the chip).
+Banded NW serves models/aligner._run_ukkonen, align/myers_aligner and
+align/hirschberg; Myers bottom rows serve align/myers_aligner and
+align/hirschberg.  Each has a Pallas-Triton kernel for the GPU
+(ops/nw_diag_pallas.py, ops/myers_pallas.py) and an XLA twin that runs on
+any backend (ops/nw_band.py, ops/myers.py), with bit-identical outputs.
 
 Backend strings accepted from the Aligner surface:
-  "auto"        Pallas DEFAULT_KERNEL when a TPU is reachable, else XLA
-  "pallas"      Pallas DEFAULT_KERNEL (interpret mode off-TPU)
-  "pallas-row"  row kernel explicitly
-  "pallas-diag" diag kernel explicitly
-  "xla"         lax.scan twin + host decode
+  "auto"    the Triton kernel on a GPU, the XLA twin elsewhere; a band wider
+            than the kernel holds (r > nw_diag_pallas.MAX_RADIUS) takes the
+            XLA twin
+  "pallas"  the Triton kernel; raises where it cannot run
+  "xla"     the XLA twin
+
+`interpret=True` runs the Triton kernels in Pallas interpret mode on any
+backend; only tests pass it.
 """
 
-from ..utils.mathutils import round_up
+from typing import NamedTuple
 
-DEFAULT_KERNEL = "diag"
+import numpy as np
 
+import jax
 
-class _XlaTb:
-    """Marker wrapping the XLA scan twin's traceback array when the
-    'diag' kind fell back to it (both Pallas layouts VMEM-infeasible);
-    decode_diag unwraps it for the host decoder."""
-
-    def __init__(self, tb):
-        self.tb = tb
+BACKENDS = ("auto", "pallas", "xla")
 
 
-def resolve(backend: str):
-    """-> (kind, nw_fn, decode_fn) for a backend string.
+class Traceback(NamedTuple):
+    """Move codes of one banded-NW call, tagged with their layout:
+    "pallas" is the 2-bit anti-diagonal layout (B, Dpad/4, r+1),
+    "xla" the one-code-per-byte row layout (Lq, B, W)."""
+    kind: str
+    codes: object
 
-    kind is 'row' | 'diag' | 'xla'.  nw_fn(q, qlen, t, tlen, r) returns
-    (scores, tb); decode_fn(tb, qlen, tlen, r) returns path lists (device
-    decode for the Pallas kinds, host decode for XLA)."""
+
+def on_gpu() -> bool:
+    return jax.default_backend() == "gpu"
+
+
+def check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown kernel backend {backend!r}; "
+                         f"expected one of {BACKENDS}")
+
+
+def _kernel_usable(backend: str, interpret: bool) -> bool:
+    """Whether `backend` runs the Triton kernel; raises for an explicit
+    kernel request the device cannot run."""
+    check_backend(backend)
+    if backend == "xla":
+        return False
+    if interpret or on_gpu():
+        return True
+    if backend == "pallas":
+        raise RuntimeError(
+            "the Pallas-Triton kernels need a GPU; default backend is "
+            f"{jax.default_backend()!r} (use backend='auto' or 'xla')")
+    return False
+
+
+def nw_kind(backend: str, band_radius: int, interpret: bool = False) -> str:
+    """'pallas' or 'xla': the banded-NW implementation one call gets."""
+    from .nw_diag_pallas import MAX_RADIUS
+    if not _kernel_usable(backend, interpret):
+        return "xla"
+    if band_radius <= MAX_RADIUS:
+        return "pallas"
+    if backend == "pallas":
+        raise ValueError(f"band radius {band_radius} exceeds the Triton "
+                         f"kernel's {MAX_RADIUS}")
+    return "xla"
+
+
+def banded_nw(q, qlen, t, tlen, band_radius: int, backend: str = "auto",
+              interpret: bool = False):
+    """-> (scores (B,) int32, Traceback)."""
     from . import nw_band
-    from .nw_band_pallas import banded_nw_pallas, pallas_available
+    if nw_kind(backend, band_radius, interpret) == "pallas":
+        from .nw_diag_pallas import banded_nw_diag_pallas
+        sc, tb = banded_nw_diag_pallas(q, qlen, t, tlen, band_radius,
+                                       interpret=interpret)
+        return sc, Traceback("pallas", tb)
+    sc, tb = nw_band.banded_nw(q, qlen, t, tlen, band_radius)
+    return sc, Traceback("xla", tb)
 
-    if backend == "auto":
-        kind = DEFAULT_KERNEL if pallas_available() else "xla"
-    elif backend == "pallas":
-        kind = DEFAULT_KERNEL
-    elif backend in ("pallas-row", "pallas-diag"):
-        kind = backend.split("-", 1)[1]
-    elif backend == "xla":
-        kind = "xla"
-    else:
-        raise ValueError(f"unknown banded-NW backend {backend!r}")
 
-    if kind == "xla":
-        def decode_xla(tb, qlen, tlen, r):
-            import numpy as np
-            return nw_band.traceback_paths(np.asarray(tb), qlen, tlen, r)
-        return "xla", nw_band.banded_nw, decode_xla
+def traceback_paths(tb: Traceback, qlen, tlen, band_radius: int) -> list:
+    """Download the move codes and decode them on the host (native decoder
+    when built, NumPy otherwise) into forward-order AlignmentState lists."""
+    from . import nw_band
+    codes = np.asarray(tb.codes)
+    if tb.kind == "xla":
+        return nw_band.traceback_paths(codes, qlen, tlen, band_radius)
+    try:
+        from ..io import native_traceback
+    except ImportError:
+        from .nw_diag_pallas import traceback_paths_diag
+        return traceback_paths_diag(codes, qlen, tlen, band_radius)
+    return native_traceback.decode(codes, qlen, tlen, band_radius,
+                                   layout="diag")[0]
 
-    interpret = not pallas_available()
-    from .tb_decode_pallas import traceback_paths_device
-    if kind == "row":
-        def nw_row(q, qlen, t, tlen, r):
-            return banded_nw_pallas(q, qlen, t, tlen, r, interpret=interpret)
 
-        def decode_row(tb, qlen, tlen, r):
-            return traceback_paths_device(tb, qlen, tlen, r,
-                                          interpret=interpret)
-        return "row", nw_row, decode_row
-
-    from .nw_diag_pallas import (VMEM_BLOCK_BUDGET, banded_nw_diag_pallas,
-                                 vmem_block_bytes)
-    from .nw_band_pallas import (ROW_VMEM_BUDGET, band_width_sub,
-                                 vmem_row_bytes)
-
-    allow_row_fallback = backend in ("auto", "pallas")
-
-    def nw_diag(q, qlen, t, tlen, r):
-        # long buckets (Lq+Lt ~> 12K) overflow the diag kernel's scoped
-        # VMEM — its q/t buffers are full-length double-buffered blocks
-        # (measured 16.75M vs the 16M limit at 8192+8192/r=128, the
-        # round-3/4 pipeline + correction crash).  The row kernel streams
-        # the query, so it stays feasible there; fall back per bucket.
-        # r < 4 also routes to row: there the two layouts' band widths
-        # collide (both 8) and decode below could not tell them apart.
-        # Buckets NEITHER kernel fits (very wide bands: r=1024 needs
-        # 20.77 MiB in the row layout — 0820_1318_correct_full.log) fall
-        # back to the XLA scan twin: slow but VMEM-unbounded.  Upstream
-        # routing (align/myers_aligner) sends such spans to Hirschberg
-        # before they get here, so the twin is the rare-tail safety net.
-        # An explicit "pallas-diag" request skips the fallback and hits
-        # the kernel's own loud assert instead.
-        if (allow_row_fallback
-                and (r < 4 or vmem_block_bytes(
-                    q.shape[1], t.shape[1], r) > VMEM_BLOCK_BUDGET)):
-            if (r >= 4 and vmem_row_bytes(
-                    q.shape[1], t.shape[1], r) > ROW_VMEM_BUDGET):
-                sc, tb = nw_band.banded_nw(q, qlen, t, tlen, r)
-                return sc, _XlaTb(tb)
-            return banded_nw_pallas(q, qlen, t, tlen, r,
-                                    interpret=interpret)
-        return banded_nw_diag_pallas(q, qlen, t, tlen, r,
-                                     interpret=interpret)
-
-    def decode_diag(tb, qlen, tlen, r):
-        # mirror nw_diag's choice: the XLA twin's tb rides in an explicit
-        # marker (shape-sniffing would collide at e.g. r=127 where
-        # round_up(2r+1, 8) == band_width(r)); without the fallback the
-        # tb is always the diag layout; with it, the packed band widths
-        # disagree for every r >= 4 (diag: round_up(r+1, 8), row:
-        # round_up(2r+1, 8)) and r < 4 always went to row above
-        if isinstance(tb, _XlaTb):
-            import numpy as np
-            return nw_band.traceback_paths(np.asarray(tb.tb), qlen, tlen, r)
-        if not allow_row_fallback:
-            diag = True
-        elif r < 4:
-            diag = False
-        else:
-            w_diag, w_row = round_up(r + 1, 8), band_width_sub(r)
-            assert tb.shape[2] in (w_diag, w_row), (tb.shape, r)
-            diag = tb.shape[2] == w_diag
-        return traceback_paths_device(tb, qlen, tlen, r,
-                                      interpret=interpret, diag=diag)
-    return "diag", nw_diag, decode_diag
+def pow2_rows(sel) -> np.ndarray:
+    """Row indices `sel` padded to a power-of-two count (at least 8) by
+    repeating the first row, so a chunk of any size reuses one compiled
+    executable per shape bucket.  Callers keep the first len(sel) results."""
+    sel = np.asarray(sel)
+    n = max(8, 1 << max(0, int(len(sel) - 1).bit_length()))
+    return np.concatenate([sel, np.full(n - len(sel), sel[0], sel.dtype)])
 
 
 def tb_bytes_per_problem(Lq: int, Lt: int, r: int, kind: str) -> int:
-    """Packed traceback bytes one problem contributes to a dispatch —
-    the number the routing/chunking budgets divide by."""
-    if kind == "diag":
-        W = round_up(r + 1, 8)                       # half-band sublanes
-        return round_up(Lq + Lt + 1, 16) // 4 * W
-    if kind == "row":
-        from .nw_band_pallas import band_width_sub
-        return round_up(Lq, 16) // 4 * band_width_sub(r)
+    """Traceback bytes one problem contributes to a dispatch — the number
+    the routing and chunking budgets divide by."""
+    if kind == "pallas":
+        from .nw_diag_pallas import n_diag_bytes
+        return n_diag_bytes(Lq, Lt) * (r + 1)
     from . import nw_band
-    return Lq * nw_band.band_width(r)                # uint8 host tb
+    return Lq * nw_band.band_width(r)                # uint8 row layout
+
+
+def myers_bottom_row(q, qlen, t, tlen, backend: str = "auto",
+                     interpret: bool = False):
+    """Myers bottom rows: (rows (B, Lt+1), scores (B,)), from the Triton
+    kernel on a GPU and the XLA scan elsewhere."""
+    if _kernel_usable(backend, interpret):
+        from .myers_pallas import myers_bottom_row_pallas
+        return myers_bottom_row_pallas(q, qlen, t, tlen, interpret=interpret)
+    from .myers import myers_bottom_row as xla_rows
+    return xla_rows(q, qlen, t, tlen)

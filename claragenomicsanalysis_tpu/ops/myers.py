@@ -1,10 +1,11 @@
 """Batched Myers bit-vector edit distance (Hyyrö's blocked formulation).
 
-TPU-native counterpart of the reference's Myers GPU kernel
-(reference: cudaaligner/src/myers_gpu.cu [U]).  Differences by design:
+XLA twin of the reference's Myers GPU kernel
+(reference: cudaaligner/src/myers_gpu.cu [U]); ops/myers_pallas.py is the
+Triton kernel with bit-identical output.  Differences by design:
 
-- 32-bit words on int32/uint32 VPU lanes (the reference uses warp-cooperative
-  u32/u64 words); batch B on lanes, words Wq statically unrolled.
+- 32-bit uint32 words (the reference uses warp-cooperative u32/u64 words);
+  batch B vectorised, words Wq statically unrolled.
 - The kernel tracks the BOTTOM-ROW score D[qlen, j] for every column j
   (reference tracks the same running score).  That row is exactly what
   Hirschberg's divide step needs, so this one op powers both the `myers`
@@ -121,12 +122,3 @@ def myers_bottom_row(q, qlen, t, tlen, n_words: int | None = None):
     scores = jnp.take_along_axis(rows, tlen[:, None], axis=1)[:, 0]
     return rows, scores
 
-
-def myers_bottom_row_best(q, qlen, t, tlen):
-    """The Pallas kernel on TPU (ops/myers_pallas.py, ~3.5 Tcells/s on v5e),
-    the XLA scan above elsewhere — bit-identical outputs either way."""
-    from .nw_band_pallas import pallas_available
-    if pallas_available():
-        from .myers_pallas import myers_bottom_row_pallas
-        return myers_bottom_row_pallas(q, qlen, t, tlen)
-    return myers_bottom_row(q, qlen, t, tlen)

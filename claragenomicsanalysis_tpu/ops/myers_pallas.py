@@ -1,196 +1,166 @@
-"""Pallas TPU kernel for batched Myers bit-vector edit distance.
+"""Pallas-Triton kernel for batched Myers bit-vector edit distance.
 
 Drop-in replacement for ops/myers.myers_bottom_row (Hyyrö's blocked
-formulation; reference counterpart: cudaaligner/src/myers_gpu.cu [U]) with
-the bit-state kept on-chip.  This is the package's fastest DP kernel: one
-32-bit word update (~27 VPU bit-ops) advances 32 DP cells, and the layout has
-NO cross-sublane data movement at all — contrast the banded-NW kernel's
-9 rolls/row:
+formulation; reference counterpart: cudaaligner/src/myers_gpu.cu [U]).  The
+XLA twin is a `lax.scan` over target columns, so every column costs at least
+one kernel launch that does a few hundred bit-ops per problem.  Here one
+launch walks all columns of a query strip in an in-kernel loop:
 
-- lanes = 128 problems, sublanes = (SUB problem sub-tiles), word index w is
-  the leading scratch dim: state Pv/Mv is (Wq, SUB, 128) uint32 in VMEM.
-- grid = (batch_tiles, Lt/R): columns advance sequentially per batch tile;
-  the inter-word carry (Hyyrö's horizontal delta hin in {-1,0,+1}) ripples
-  through the static word loop as two 0/1 uint masks.
-- the bottom-row delta needs bit (qlen-1)%32 of word (qlen-1)/32, a
-  per-problem position: precomputed one-hot word masks (msk) turn the
-  extraction into one AND+OR per word and a single != 0 per column.
-- rows (the full bottom DP row, D[qlen, j] for every column j) are written
-  out — they are exactly what Hirschberg's divide step consumes.
+- one problem per thread: a program holds BLOCK_B problems (one warp), the
+  grid covers the batch;
+- a strip of up to STRIP_WORDS query words keeps its Pv/Mv state and its
+  four Peq masks in registers for the whole column sweep;
+- queries longer than one strip run one launch per strip: each launch hands
+  the next the horizontal delta of its last word, one int8 per (column,
+  problem), so the carry chain of Hyyrö's block step crosses strips exactly
+  as it crosses words;
+- the bottom-row score D[qlen, j] comes from bit (qlen-1) % 32 of word
+  (qlen-1) // 32, so the strip holding that word writes the rows.
 
-Bit-identical to ops/myers.myers_bottom_row (asserted by tests in interpret
-mode and on-device).
+Outputs are integers and bit-identical to ops/myers.myers_bottom_row
+(asserted by tests in interpret mode and by chip_smoke.py on the card).
 """
 
 import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..utils.mathutils import round_up
 from .myers import WORD, build_peq, num_words
 
-LANE = 128
+#: problems per program: one warp, one problem per thread
+BLOCK_B = 32
+#: query words whose state stays in registers during one column sweep
+#: (Pv + Mv + 4 Peq = 6 registers per word and thread; 32 measured faster
+#: than 8 and 16 at Lq = 2048 and 8192 on an H100, see PERF.md)
+STRIP_WORDS = 32
+
+_ONES = 0xFFFFFFFF
 
 
-def _kernel(peq_ref, t_ref, msk_ref, qlen_ref, rows_ref, pv_ref, mv_ref,
-            score_ref, *, Wq: int, SUB: int, R: int, U: int):
-    jc = pl.program_id(1)
+def _kernel(*refs, ws: int, Lt: int, bb: int, has_hin: bool,
+            has_hout: bool):
+    it = iter(refs)
+    peq_ref, t_ref, qlen_ref, wl_ref = next(it), next(it), next(it), next(it)
+    hin_ref = next(it) if has_hin else None
+    rows_ref = next(it)
+    hout_ref = next(it) if has_hout else None
 
-    @pl.when(jc == 0)
-    def _init():
-        pv_ref[:] = jnp.full((Wq, SUB, LANE), 0xFFFFFFFF, jnp.uint32)
-        mv_ref[:] = jnp.zeros((Wq, SUB, LANE), jnp.uint32)
-        score_ref[:] = qlen_ref[:]
-
-    qlen = qlen_ref[:]
+    lanes = pl.ds(pl.program_id(0) * bb, bb)
+    u32 = jnp.uint32
+    peq = [[peq_ref[s, w, lanes] for w in range(ws)] for s in range(4)]
+    qlen = qlen_ref[lanes]
+    wl = wl_ref[lanes]                  # strip-local word of the bottom row
+    bit = (jnp.maximum(qlen - 1, 0) % WORD).astype(u32)
     q0 = qlen == 0
-    score = score_ref[:]
-    msk = [msk_ref[w] for w in range(Wq)]          # (SUB, LANE) each, hoisted
+    ones = jnp.full((bb,), 1, u32)
+    zeros = jnp.zeros((bb,), u32)
 
-    # U = column-unroll factor: the word loop goes OUTSIDE a U-column
-    # inner loop so each word's Pv/Mv load+store AND its four Peq loads
-    # amortize over U column updates (per column-word: ~8 memory issue
-    # slots at U=1 vs ~2 at U=4 against 27 ALU ops).  The dataflow is
-    # identical for every U — column u's word-w update still consumes
-    # word w-1's carry of column u and word w's state after column u-1 —
-    # so outputs are bit-identical (tests assert vs the scan backend).
-    for g in range(R // U):                        # R columns per grid step
-        is01 = [None] * U
-        is0 = [None] * U
-        is2 = [None] * U
-        posmask = [None] * U
-        for u in range(U):
-            c = t_ref[g * U + u]                   # (SUB, LANE) int32
-            is01[u] = c <= 1
-            is0[u] = c == 0
-            is2[u] = c == 2
-            posmask[u] = jnp.where(c >= 0, jnp.uint32(0xFFFFFFFF),
-                                   jnp.uint32(0))
+    def column(j, carry):
+        pv, mv, score = carry
+        c = t_ref[j, lanes].astype(jnp.int32)
+        c01, c0, c2 = c <= 1, c == 0, c == 2
+        pos = jnp.where(c >= 0, u32(_ONES), u32(0))
+        if has_hin:
+            h = hin_ref[j, lanes].astype(jnp.int32)
+            hin_pos = (h > 0).astype(u32)
+            hin_neg = (h < 0).astype(u32)
+        else:
+            hin_pos, hin_neg = ones, zeros       # D[0,j]-D[0,j-1] = +1
+        ph_sel, mh_sel = zeros, zeros
+        pv2, mv2 = [], []
+        for w in range(ws):
+            Pv, Mv = pv[w], mv[w]
+            Eq = jnp.where(c01, jnp.where(c0, peq[0][w], peq[1][w]),
+                           jnp.where(c2, peq[2][w], peq[3][w])) & pos
+            Eq2 = Eq | hin_neg
+            Xv = Eq | Mv
+            Xh = (((Eq2 & Pv) + Pv) ^ Pv) | Eq2
+            Ph_pre = Mv | ~(Xh | Pv)
+            Mh_pre = Pv & Xh
+            mine = wl == w
+            ph_sel = jnp.where(mine, Ph_pre, ph_sel)
+            mh_sel = jnp.where(mine, Mh_pre, mh_sel)
+            nxt_pos = Ph_pre >> (WORD - 1)
+            nxt_neg = Mh_pre >> (WORD - 1)
+            Ph = (Ph_pre << 1) | hin_pos
+            Mh = (Mh_pre << 1) | hin_neg
+            pv2.append(Mh | ~(Xv | Ph))
+            mv2.append(Ph & Xv)
+            hin_pos, hin_neg = nxt_pos, nxt_neg
+        delta = (((ph_sel >> bit) & 1).astype(jnp.int32)
+                 - ((mh_sel >> bit) & 1).astype(jnp.int32))
+        score = jnp.where(q0, j + 1, score + delta)
+        plgpu.store(rows_ref.at[j, lanes], score,
+                    mask=(wl >= 0) & (wl < ws))
+        if has_hout:
+            hout = hin_pos.astype(jnp.int32) - hin_neg.astype(jnp.int32)
+            hout_ref[j, lanes] = hout.astype(jnp.int8)
+        return tuple(pv2), tuple(mv2), score
 
-        ones = jnp.ones((SUB, LANE), jnp.uint32)   # D[0,j]-D[0,j-1] = +1
-        zeros = jnp.zeros((SUB, LANE), jnp.uint32)
-        hin_pos = [ones] * U
-        hin_neg = [zeros] * U
-        accP = [zeros] * U
-        accM = [zeros] * U
-        for w in range(Wq):
-            Pv = pv_ref[w]
-            Mv = mv_ref[w]
-            peq0, peq1 = peq_ref[0, w], peq_ref[1, w]
-            peq2, peq3 = peq_ref[2, w], peq_ref[3, w]
-            for u in range(U):
-                Eq = jnp.where(is01[u], jnp.where(is0[u], peq0, peq1),
-                               jnp.where(is2[u], peq2, peq3))
-                Eq = Eq & posmask[u]
-                Eq2 = Eq | hin_neg[u]
-                Xv = Eq | Mv
-                Xh = (((Eq2 & Pv) + Pv) ^ Pv) | Eq2
-                Ph_pre = Mv | ~(Xh | Pv)
-                Mh_pre = Pv & Xh
-                accP[u] = accP[u] | (Ph_pre & msk[w])
-                accM[u] = accM[u] | (Mh_pre & msk[w])
-                nxt_pos = Ph_pre >> (WORD - 1)
-                nxt_neg = Mh_pre >> (WORD - 1)
-                Ph = (Ph_pre << 1) | hin_pos[u]
-                Mh = (Mh_pre << 1) | hin_neg[u]
-                Pv, Mv = Mh | ~(Xv | Ph), Ph & Xv
-                hin_pos[u] = nxt_pos
-                hin_neg[u] = nxt_neg
-            pv_ref[w] = Pv
-            mv_ref[w] = Mv
+    init = (tuple(jnp.full((bb,), _ONES, u32) for _ in range(ws)),
+            tuple(zeros for _ in range(ws)), qlen)
+    jax.lax.fori_loop(0, Lt, column, init)
 
-        for u in range(U):
-            j = jc * R + g * U + u
-            delta = ((accP[u] != 0).astype(jnp.int32)
-                     - (accM[u] != 0).astype(jnp.int32))
-            score = jnp.where(q0, j + 1, score + delta)
-            rows_ref[g * U + u] = score
 
-    score_ref[:] = score
+def _strip(peq, tT, qlen, wl, hin, *, Lt, Bp, has_hout, interpret):
+    """One launch over a strip: peq holds the strip's words (4, ws, Bp) and
+    wl each problem's bottom-row word relative to the strip, so every
+    middle strip of a query reuses one compiled kernel."""
+    bb = BLOCK_B
+    ws = peq.shape[1]
+    kernel = functools.partial(_kernel, ws=ws, Lt=Lt, bb=bb,
+                               has_hin=hin is not None, has_hout=has_hout)
+    out_shape = [jax.ShapeDtypeStruct((Lt, Bp), jnp.int32)]
+    if has_hout:
+        out_shape.append(jax.ShapeDtypeStruct((Lt, Bp), jnp.int8))
+    args = (peq, tT, qlen, wl) + ((hin,) if hin is not None else ())
+    outs = pl.pallas_call(
+        kernel, grid=(Bp // bb,), out_shape=tuple(out_shape),
+        compiler_params=plgpu.CompilerParams(num_warps=bb // 32,
+                                             num_stages=1),
+        interpret=interpret, name=f"myers_strip_w{ws}",
+    )(*args)
+    return outs if has_hout else (outs[0], None)
 
 
 @functools.partial(jax.jit, static_argnames=("n_words", "interpret",
-                                              "unroll"))
+                                              "strip_words"))
 def myers_bottom_row_pallas(q, qlen, t, tlen, n_words: int | None = None,
-                            interpret: bool = False, unroll: int = 2):
+                            interpret: bool = False,
+                            strip_words: int = STRIP_WORDS):
     """Drop-in replacement for ops.myers.myers_bottom_row: returns
-    (rows (B, Lt+1) int32, scores (B,) int32).
-
-    unroll: column-unroll factor U (must divide 32); every U produces
-    bit-identical output — it only trades register pressure against
-    Pv/Mv/Peq memory traffic (see _kernel).  Default 2: the on-chip sweep
-    (scripts/ablate_myers_unroll.py, 2026-08-19 v5e) measured
-    U=1/2/4/8 -> 3933/4054/3942/3879 Gcells/s."""
+    (rows (B, Lt+1) int32, scores (B,) int32).  strip_words only trades
+    registers against launches; every value gives identical output."""
     B, Lq = q.shape
     Lt = t.shape[1]
     Wq = n_words or num_words(Lq)
-    R = 32      # columns per grid step (measured 8/16/32 -> 3.66/3.82/3.89T)
-    if R % unroll != 0:
-        raise ValueError(f"unroll {unroll} must divide R={R}")
     qlen = qlen.astype(jnp.int32)
     tlen = tlen.astype(jnp.int32)
-
-    SUB = min(8, max(1, -(-B // LANE)))
-    TILE = SUB * LANE
-    Bp = round_up(max(B, TILE), TILE)
-    Ltp = max(R, round_up(Lt, R))
-    nbt = Bp // TILE
+    Bp = round_up(max(B, BLOCK_B), BLOCK_B)
 
     qp = jnp.pad(q.astype(jnp.int32), ((0, Bp - B), (0, 0)),
                  constant_values=-1)
     qlenp = jnp.pad(qlen, (0, Bp - B))
-    tp = jnp.pad(t.astype(jnp.int32), ((0, Bp - B), (0, Ltp - Lt)),
-                 constant_values=-1)
+    tT = jnp.pad(t.astype(jnp.int8), ((0, Bp - B), (0, 0)),
+                 constant_values=-1).T                       # (Lt, Bp)
+    peq = build_peq(qp, Wq)                                  # (4, Wq, Bp)
 
-    peq = build_peq(qp, Wq)                              # (4, Wq, Bp)
-    peq4 = peq.reshape(4, Wq, nbt, SUB, LANE).transpose(2, 0, 1, 3, 4)
-    tT = tp.T.reshape(Ltp, nbt, SUB, LANE).transpose(1, 0, 2, 3)
-    qlen4 = qlenp.reshape(nbt, SUB, LANE)
+    wlast = jnp.maximum(qlenp - 1, 0) // WORD
+    strip_of = wlast // strip_words
+    rows, hin = None, None
+    starts = list(range(0, Wq, strip_words))
+    for s, w0 in enumerate(starts):
+        ws = min(strip_words, Wq - w0)
+        r_s, hin = _strip(peq[:, w0:w0 + ws], tT, qlenp, wlast - w0, hin,
+                          Lt=Lt, Bp=Bp, has_hout=s + 1 < len(starts),
+                          interpret=interpret)
+        # rows a strip does not own are left unwritten: keep the owner's
+        rows = r_s if rows is None else jnp.where(strip_of == s, r_s, rows)
 
-    wlast = jnp.maximum(qlenp - 1, 0) // WORD            # (Bp,)
-    bit_last = (jnp.maximum(qlenp - 1, 0) % WORD).astype(jnp.uint32)
-    onebit = (jnp.uint32(1) << bit_last)                 # (Bp,)
-    widx = jnp.arange(Wq, dtype=jnp.int32)[:, None]
-    msk = jnp.where(widx == wlast[None, :], onebit[None, :], 0)  # (Wq, Bp)
-    msk4 = msk.reshape(Wq, nbt, SUB, LANE).transpose(1, 0, 2, 3)
-
-    kernel = functools.partial(_kernel, Wq=Wq, SUB=SUB, R=R, U=unroll)
-    rows = pl.pallas_call(
-        kernel,
-        grid=(nbt, Ltp // R),
-        in_specs=[
-            pl.BlockSpec((None, 4, Wq, SUB, LANE),
-                         lambda b, j: (b, 0, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((None, R, SUB, LANE), lambda b, j: (b, j, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((None, Wq, SUB, LANE), lambda b, j: (b, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((None, SUB, LANE), lambda b, j: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((None, R, SUB, LANE),
-                               lambda b, j: (b, j, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((nbt, Ltp, SUB, LANE), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((Wq, SUB, LANE), jnp.uint32),   # Pv
-            pltpu.VMEM((Wq, SUB, LANE), jnp.uint32),   # Mv
-            pltpu.VMEM((SUB, LANE), jnp.int32),        # running score
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=Bp * Ltp * Wq * 27,
-            bytes_accessed=Bp * (Ltp * 8 + Wq * 16 * 4),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(peq4, tT, msk4, qlen4)
-
-    rows = rows.transpose(0, 2, 3, 1).reshape(Bp, Ltp)[:B, :Lt]  # (B, Lt)
-    rows = jnp.concatenate([qlen[:, None], rows], axis=1)        # (B, Lt+1)
+    rows = jnp.concatenate([qlen[:, None], rows.T[:B]], axis=1)  # (B, Lt+1)
     scores = jnp.take_along_axis(rows, tlen[:, None], axis=1)[:, 0]
     return rows, scores

@@ -1,19 +1,18 @@
 """Batched banded Needleman–Wunsch (edit distance) — XLA scan formulation.
 
-TPU-native redesign of the reference's banded/"Ukkonen" GPU kernel
-(reference: cudaaligner/src/ukkonen_gpu.cu [U]).  Instead of a SIMT
-anti-diagonal sweep with one thread block per alignment, the whole batch is ONE
-XLA program:
+XLA twin of the reference's banded/"Ukkonen" GPU kernel (reference:
+cudaaligner/src/ukkonen_gpu.cu [U]); ops/nw_diag_pallas.py is the Triton
+kernel with identical scores and paths.  Instead of an anti-diagonal sweep
+with one thread block per alignment, the whole batch is ONE XLA program:
 
 - Lane layout: lane k of a width-W vector tracks the fixed diagonal offset
   delta = j - i = k - r (r = band radius, W = 2r+1 padded to the 128-lane
   boundary).  A `lax.scan` walks query rows i = 1..Lq; every step updates all
-  band cells of all B problems at once — an (B, W) elementwise block, which is
-  exactly the VPU's shape.
+  band cells of all B problems at once — an (B, W) elementwise block.
 - The within-row deletion chain D[i,j] = min(..., D[i,j-1]+1) — the part that
   breaks naive row vectorization — is solved in closed form:
       D[i,k] = k + cummin_{l<=k}(tmp[l] - l)
-  a min-plus prefix scan over lanes (log-depth on TPU).
+  a min-plus prefix scan over lanes (log depth).
 - Traceback move codes (AlignmentState) are emitted per row into an
   (Lq, B, W) uint8 array using the package-canonical tie-break
   (diag, then deletion, then insertion — see cpu/nw_oracle.py).
@@ -132,13 +131,10 @@ def banded_nw(q: jnp.ndarray, qlen: jnp.ndarray, t: jnp.ndarray,
 
 
 def traceback_paths(tb: np.ndarray, qlen: np.ndarray, tlen: np.ndarray,
-                    band_radius: int, use_native: str = "auto",
-                    packed: bool = False) -> list[list[int]]:
-    """Host-side decode of the banded traceback array into edit paths.
-
-    packed=True decodes the Pallas kernel's 2-bit format (four DP rows per
-    int8 byte, shape (Lq//4, B, W)); packed=False the scan backend's one
-    code per byte.  Dispatches to the native C++ decoder
+                    band_radius: int, use_native: str = "auto"
+                    ) -> list[list[int]]:
+    """Host-side decode of the banded traceback array (Lq, B, W), one code
+    per byte, into edit paths.  Dispatches to the native C++ decoder
     (native/traceback.cpp) when built — a single linear scan per problem.
     The pure-Python fallback below walks all B problems in lockstep with
     vectorized NumPy (the per-problem walk is inherently serial — O(n+m)
@@ -151,13 +147,12 @@ def traceback_paths(tb: np.ndarray, qlen: np.ndarray, tlen: np.ndarray,
     if use_native in ("auto", "native"):
         try:
             from ..io import native_traceback
-            paths, _ = native_traceback.decode(tb, qlen, tlen, band_radius,
-                                               packed=packed)
+            paths, _ = native_traceback.decode(tb, qlen, tlen, band_radius)
             return paths
         except ImportError:
             if use_native == "native":
                 raise
-    tb = np.asarray(tb).view(np.uint8)     # logical shifts for packed bytes
+    tb = np.asarray(tb).view(np.uint8)
     qlen = np.asarray(qlen).astype(np.int64)
     tlen = np.asarray(tlen).astype(np.int64)
     B = tb.shape[1]
@@ -175,14 +170,8 @@ def traceback_paths(tb: np.ndarray, qlen: np.ndarray, tlen: np.ndarray,
         read = active & (i > 0)
         code = np.zeros(B, dtype=np.uint8)
         lanes = np.clip(r + j - i, 0, tb.shape[2] - 1)
-        if packed:
-            rows = np.clip((i - 1) >> 2, 0, tb.shape[0] - 1)
-            byte = tb[rows[read], np.nonzero(read)[0], lanes[read]]
-            code[read] = (byte >> (2 * ((i[read] - 1) & 3)).astype(np.uint8)
-                          ) & 3
-        else:
-            rows = np.clip(i - 1, 0, tb.shape[0] - 1)
-            code[read] = tb[rows[read], np.nonzero(read)[0], lanes[read]]
+        rows = np.clip(i - 1, 0, tb.shape[0] - 1)
+        code[read] = tb[rows[read], np.nonzero(read)[0], lanes[read]]
         code[del_row] = AlignmentState.DELETION
         code_mat[s] = code
         act_mat[s] = active

@@ -1,37 +1,36 @@
-"""Anti-diagonal banded NW Pallas kernel — the scan-free reformulation.
+"""Anti-diagonal banded NW as a Pallas-Triton kernel.
 
-The row-major flagship kernel (ops/nw_band_pallas.py) walks query rows and
-pays a log2(W)-step Hillis-Steele min-plus prefix scan per row for the
-in-row deletion chain (~24 of its ~55 VPU ops).  Along an ANTI-DIAGONAL
-d = i + j, DP cells are independent — every dependency points at d-1/d-2 —
-so the chain disappears entirely: one sublane roll + a 3-way min per step.
+The XLA twin (ops/nw_band.banded_nw) walks query rows and pays a log-depth
+min-plus prefix scan per row for the in-row deletion chain, one scan step
+(and at least one launch) per row.  Along an ANTI-DIAGONAL d = i + j the DP
+cells are independent — every dependency points at d-1 or d-2 — so one
+kernel launch sweeps all diagonals in an in-kernel loop with a 3-way min per
+cell (reference counterpart: cudaaligner/src/ukkonen_gpu.cu [U], which also
+sweeps anti-diagonals with one block per alignment).
 
-Layout: problems on lanes; the band's intersection with one anti-diagonal
-on sublanes.  With u = j - i + r, cells on diagonal d satisfy
-u ≡ d + r (mod 2), so consecutive diagonals use interleaved half-bands:
-par = (d + r) & 1, u = 2u' + par, u' in [0, r] — HALF the sublanes of the
-row formulation (W' ≈ W/2).  Dependencies at (d, u'):
+Layout: a program holds a (BB problems, W half-band cells) tile.  With
+u = j - i + r, cells on diagonal d satisfy u ≡ d + r (mod 2), so
+consecutive diagonals use interleaved half-bands: par = (d + r) & 1,
+u = 2k + par, k in [0, r - par].  Dependencies at (d, k):
 
-    diag  D[i-1, j-1] -> (d-2, u')                       no roll
-    up    D[i-1, j  ] -> (d-1, u' + par)                 roll iff par=1
-    left  D[i,   j-1] -> (d-1, u' + par - 1)             roll iff par=0
+    diag  D[i-1, j-1] -> (d-2, k)
+    up    D[i-1, j  ] -> (d-1, k + par)
+    left  D[i,   j-1] -> (d-1, k + par - 1)
 
-The grid steps R=16 diagonals at a time; parity alternates statically
-within the unroll, so each rr compiles to exactly one masked roll.  q/t
-characters arrive as two dynamic sublane slices per diagonal (query
-reversed: i decreases along u', j increases).
+The ±1 neighbour on the previous half-band belongs to another thread, so
+each diagonal is written to a small per-program buffer (double-buffered,
+INF-padded on both ends) and read back at an offset after a block barrier;
+the buffer stays in L1.  Query characters come from a reversed copy of the
+query (i decreases as k grows), target characters from a padded copy, both
+as contiguous dynamic-offset loads.
 
-Outputs match ops/nw_band.banded_nw bit-for-bit: scores are the same
-banded edit distances, and the 2-bit move codes use the identical
-tie-break (diag, then DELETION via left+1, else INSERTION), packed four
-DIAGONALS per int8 byte — decode with traceback_paths_diag below.  The
-boundary rows/columns need no special code paths beyond i==0 -> j: INF
-propagation from out-of-band dependencies produces the correct values and
-codes (e.g. column j==0 yields INSERTION exactly as the row kernel does).
-
-Reference counterpart: cudaaligner/src/ukkonen_gpu.cu [U] sweeps
-anti-diagonals with one CUDA block per alignment; this kernel sweeps them
-with 128 problems per lane tile and the band on sublanes.
+Outputs match ops/nw_band.banded_nw: scores are the same banded edit
+distances, and the 2-bit move codes use the identical tie-break (diag,
+then DELETION via left+1, else INSERTION), packed four DIAGONALS per byte
+in a (B, Dpad/4, r+1) array — decode with traceback_paths_diag or the
+native decoder (native/traceback.cpp).  The boundary needs no special code
+beyond i == 0 -> j: INF propagation from out-of-band dependencies gives the
+correct values and codes on every reachable in-band cell.
 """
 
 import functools
@@ -41,212 +40,153 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..core.status import AlignmentState
 from ..utils.mathutils import round_up
 from .nw_band import INF
 
-LANE_TILE = 128
-
-#: scoped-VMEM feasibility budget for the diag kernel (v5e limit 16 MiB).
-#: Two on-chip OOM data points calibrate the estimator below:
-#:   Lq=Lt=8192, r=128 -> 16.75M   (block-dominated)
-#:   Lq=Lt=4096, r=512 -> 17.59M   (stack-dominated: the R=16 unrolled
-#:                                  diagonal loop keeps ~3 (W, 128) i32
-#:                                  temporaries live per iteration)
-VMEM_BLOCK_BUDGET = 14 * 2**20
+#: widest half-band tile (cells) the kernel holds: r + 1 <= MAX_BAND_CELLS.
+#: At 8 warps that is 16 cells per thread for each of the ~8 live tiles,
+#: inside the 255-register budget of a thread.
+MAX_BAND_CELLS = 4096
+MAX_RADIUS = MAX_BAND_CELLS - 1
+#: cells per thread a program aims for (tile = BB x W = 128 x this)
+_CELLS_PER_WARP = 128
 
 
-def vmem_block_bytes(Lq: int, Lt: int, r: int) -> int:
-    """Conservative scoped-VMEM estimate for this shape bucket: q/t input
-    blocks (pipeline-buffered, ~1.5x) plus the unrolled-loop stack term.
-    ops.banded uses it to fall back to the row kernel (which streams the
-    query and ran r=512 pipeline shapes on chip in round 2)."""
-    W = round_up(r + 1, 8)
-    R = 16
-    Dpad = round_up(Lq + Lt + 1, R)
-    i_top_max = (Dpad - 1 + r) // 2
-    PADQ = round_up(max(0, i_top_max - Lq), 8)
-    PADT = round_up(r // 2 + 2, 8)
-    S_q = round_up(PADQ + Lq + W + 8, 8)
-    S_t = round_up(PADT + Lt + W + 8, 8)
-    blocks = 4 * LANE_TILE * (S_q + S_t)
-    stack = 3 * R * W * LANE_TILE * 4
-    return blocks + blocks // 2 + stack
+def _pow2(x: int) -> int:
+    return 1 << max(0, int(x - 1).bit_length())
 
 
-def _shift_lower(x, s, krow, fill):
-    """out[k] = x[k-s]; `fill` for k < s (sublane axis 0)."""
-    W = x.shape[0]
-    rolled = pltpu.roll(x, shift=s, axis=0)
-    return jnp.where(krow >= s, rolled, fill)
+def tile_shape(band_radius: int) -> tuple[int, int, int]:
+    """(BB problems, W half-band cells, num_warps) of one program."""
+    W = _pow2(band_radius + 1)
+    bb = max(1, 512 // W)
+    num_warps = min(8, max(1, bb * W // _CELLS_PER_WARP))
+    return bb, W, num_warps
 
 
-def _shift_upper(x, s, krow, fill):
-    """out[k] = x[k+s]; `fill` for k >= W-s (sublane axis 0)."""
-    W = x.shape[0]
-    rolled = pltpu.roll(x, shift=W - s, axis=0)
-    return jnp.where(krow < W - s, rolled, fill)
+def n_diag_bytes(Lq: int, Lt: int) -> int:
+    """Packed rows per problem: four anti-diagonals per byte."""
+    return round_up(Lq + Lt + 1, 4) // 4
 
 
 def _kernel(qbuf_ref, tbuf_ref, qlen_ref, tlen_ref, score_ref, tb_ref,
-            prev1_ref, prev2_ref, sacc_ref, *, r: int, W: int, R: int,
-            Lqp: int, PADQ: int, PADT: int):
-    chunk = pl.program_id(1)
-    n_chunks = pl.num_programs(1)
-    krow = jax.lax.broadcasted_iota(jnp.int32, (W, LANE_TILE), 0)
-    qlen_u = qlen_ref[:].astype(jnp.uint32)     # (1, LANE_TILE)
-    tlen_u = tlen_ref[:].astype(jnp.uint32)
-    inf = jnp.asarray(int(INF), jnp.int32)
-    one = jnp.asarray(1, jnp.int32)
-    # in-band mask per parity: u = 2k+par <= 2r  (hoisted, static)
-    band = (krow <= r, krow <= r - 1)
+            scr_ref, *, r: int, W: int, bb: int, n_chunks: int, qoff: int,
+            toff: int, interpret: bool):
+    rows = pl.ds(pl.program_id(0) * bb, bb)
+    k = jax.lax.broadcasted_iota(jnp.int32, (bb, W), 1)
+    qlen = qlen_ref[rows][:, None]
+    tlen = tlen_ref[rows][:, None]
+    qlen_u = qlen.astype(jnp.uint32)
+    tlen_u = tlen.astype(jnp.uint32)
+    inf = jnp.full((bb, W), int(INF), jnp.int32)
+    band = (k <= r, k <= r - 1)             # in-band half-band cells per par
+    n_del = jnp.int32(int(AlignmentState.DELETION))
+    n_ins = jnp.int32(int(AlignmentState.INSERTION))
 
-    @pl.when(chunk == 0)
-    def _init():
-        prev1_ref[:] = jnp.full((W, LANE_TILE), int(INF), jnp.int32)
-        prev2_ref[:] = jnp.full((W, LANE_TILE), int(INF), jnp.int32)
-        sacc_ref[:] = jnp.zeros((W, LANE_TILE), jnp.int32)
+    def barrier():
+        if not interpret:                   # interpret mode runs in order
+            plgpu.debug_barrier()
 
-    prev1 = prev1_ref[:]
-    prev2 = prev2_ref[:]
-    sacc = sacc_ref[:]
-    base = chunk * R
-    acc = jnp.zeros((W, LANE_TILE), jnp.int32)
+    # both buffer slots INF, including the pad cell at each end
+    for slot in range(2):
+        scr_ref[rows, slot, pl.ds(0, W)] = inf
+        scr_ref[rows, slot, pl.ds(2, W)] = inf
+    barrier()
 
-    for rr in range(R):                     # static unroll, parity alternates
-        d = base + rr
-        par = (rr + r) % 2                  # R is even => static per rr
-        i_top = (d + r) // 2                # i at sublane u'=0 (scalar)
-        i_vec = i_top - krow                # (W, LANE_TILE)
-        j_vec = d - i_vec
-        # chars: q[i-1] along descending i (reversed buffer), t[j-1]
-        qch = qbuf_ref[pl.ds(PADQ + Lqp - i_top, W), :]
-        tch = tbuf_ref[pl.ds(PADT + d - i_top - 1, W), :]
-        sub = jnp.where((qch == tch) & (qch >= 0), 0, one)
+    def chunk(ci, carry):
+        prev1, prev2, sacc = carry
+        acc = jnp.zeros((bb, W), jnp.int32)
+        for rr in range(4):                 # chunk base is even: par static
+            d = ci * 4 + rr
+            par = (rr + r) % 2
+            i_top = (d + r) >> 1            # i at k = 0
+            i_vec = i_top - k
+            j_vec = d - i_vec
+            qch = qbuf_ref[rows, pl.ds(qoff - i_top, W)]
+            tch = tbuf_ref[rows, pl.ds(toff + d - i_top, W)]
+            sub = jnp.where((qch == tch) & (qch >= 0), 0, 1)
+            # one unsigned compare covers 0 <= x <= len per side
+            valid = ((i_vec.astype(jnp.uint32) <= qlen_u)
+                     & (j_vec.astype(jnp.uint32) <= tlen_u) & band[par])
+            if par == 0:
+                up = prev1
+                left = scr_ref[rows, (rr + 1) % 2, pl.ds(0, W)]
+            else:
+                up = scr_ref[rows, (rr + 1) % 2, pl.ds(2, W)]
+                left = prev1
+            diag = prev2 + sub
+            cur = jnp.minimum(diag, jnp.minimum(up, left) + 1)
+            cur = jnp.where(i_vec == 0, j_vec, cur)   # top row (and (0,0))
+            cur = jnp.where(valid, cur, inf)
+            code = jnp.where(cur == diag, sub,
+                             jnp.where(cur == left + 1, n_del, n_ins))
+            acc = acc | (code << (2 * rr))
+            hit = (i_vec == qlen) & (j_vec == tlen) & valid
+            sacc = sacc + jnp.where(hit, cur, 0)
+            scr_ref[rows, rr % 2, pl.ds(1, W)] = cur
+            barrier()
+            prev2, prev1 = prev1, cur
+        plgpu.store(tb_ref.at[rows, ci, pl.ds(0, W)], acc.astype(jnp.int8),
+                    mask=k <= r)
+        return prev1, prev2, sacc
 
-        # one unsigned compare covers 0 <= x <= len per side
-        valid = ((i_vec.astype(jnp.uint32) <= qlen_u)
-                 & (j_vec.astype(jnp.uint32) <= tlen_u) & band[par])
-
-        if par == 0:
-            up = prev1
-            left = _shift_lower(prev1, 1, krow, inf)
-        else:
-            up = _shift_upper(prev1, 1, krow, inf)
-            left = prev1
-        diag = prev2 + sub
-        cur = jnp.minimum(diag, jnp.minimum(up, left) + one)
-        cur = jnp.where(i_vec == 0, j_vec, cur)   # top boundary (and (0,0))
-        cur = jnp.where(valid, cur, inf)
-
-        # identical tie-break to the row kernel: diag, then DELETION, else
-        # INSERTION (codes on invalid cells are never read by the decoder)
-        code = jnp.where(
-            cur == diag, sub,
-            jnp.where(cur == left + one,
-                      jnp.asarray(int(AlignmentState.DELETION), jnp.int32),
-                      jnp.asarray(int(AlignmentState.INSERTION), jnp.int32)))
-        acc = acc | (code << (2 * (rr % 4)))
-        if rr % 4 == 3:
-            tb_ref[rr // 4] = acc.astype(jnp.int8)
-            acc = jnp.zeros((W, LANE_TILE), jnp.int32)
-
-        hit = (i_vec == qlen_ref[:]) & (j_vec == tlen_ref[:]) & valid
-        sacc = sacc + jnp.where(hit, cur, 0)
-        prev2 = prev1
-        prev1 = cur
-
-    prev1_ref[:] = prev1
-    prev2_ref[:] = prev2
-    sacc_ref[:] = sacc
-
-    @pl.when(chunk == n_chunks - 1)
-    def _emit():
-        score_ref[:] = jnp.sum(sacc_ref[:], axis=0, keepdims=True)
+    _, _, sacc = jax.lax.fori_loop(
+        0, n_chunks, chunk, (inf, inf, jnp.zeros((bb, W), jnp.int32)))
+    score_ref[rows] = jnp.sum(sacc, axis=1)
 
 
 @functools.partial(jax.jit, static_argnames=("band_radius", "interpret"))
 def banded_nw_diag_pallas(q, qlen, t, tlen, band_radius: int,
                           interpret: bool = False):
     """Banded NW, anti-diagonal sweep.  Same score semantics as
-    ops.nw_band.banded_nw; returns (scores (B,) int32,
-    tb (Dpad//4, B, W') int8 with four DIAGONALS' 2-bit codes per byte —
-    decode with traceback_paths_diag)."""
-    B, Lq0 = q.shape
-    Lt0 = t.shape[1]
+    ops.nw_band.banded_nw; returns (scores (B,) int32, tb (B, Dpad/4, r+1)
+    int8 with four DIAGONALS' 2-bit codes per byte)."""
+    B, Lq = q.shape
+    Lt = t.shape[1]
     r = band_radius
-    W = round_up(r + 1, 8)                       # half-band on sublanes
-    Bp = round_up(max(B, LANE_TILE), LANE_TILE)
-    R = 16
-    Dpad = round_up(Lq0 + Lt0 + 1, R)
+    if not 0 <= r <= MAX_RADIUS:
+        raise ValueError(f"band radius {r} outside [0, {MAX_RADIUS}]")
+    bb, W, num_warps = tile_shape(r)
+    Bp = round_up(max(B, bb), bb)
+    n_chunks = n_diag_bytes(Lq, Lt)
+    Dpad = 4 * n_chunks
     i_top_max = (Dpad - 1 + r) // 2
-    PADQ = round_up(max(0, i_top_max - Lq0), 8)
-    PADT = round_up(r // 2 + 2, 8)
-    assert vmem_block_bytes(Lq0, Lt0, r) <= VMEM_BLOCK_BUDGET, (
-        "diag kernel q/t VMEM blocks exceed the scoped budget for "
-        f"Lq={Lq0} Lt={Lt0} r={r}; route via ops.banded (row fallback)")
 
-    q = jnp.pad(q.astype(jnp.int32), ((0, Bp - B), (0, 0)),
-                constant_values=-1)
-    t = jnp.pad(t.astype(jnp.int32), ((0, Bp - B), (0, 0)),
-                constant_values=-1)
-    qlen2 = jnp.pad(qlen.astype(jnp.int32), (0, Bp - B))[None, :]
-    tlen2 = jnp.pad(tlen.astype(jnp.int32), (0, Bp - B))[None, :]
+    # reversed query: qbuf[padq + p] = q[Lq - 1 - p]; cell k of diagonal d
+    # reads q[i-1] = qbuf[padq + Lq - i_top + k]
+    padq = max(0, i_top_max - Lq)
+    qbuf = jnp.full((Bp, padq + Lq + W), -1, jnp.int8)
+    qbuf = jax.lax.dynamic_update_slice(
+        qbuf, jnp.pad(q.astype(jnp.int8)[:, ::-1], ((0, Bp - B), (0, 0)),
+                      constant_values=-1), (0, padq))
+    # target: tbuf[padt + p] = t[p]; cell k reads t[j-1] =
+    # tbuf[padt - 1 + d - i_top + k], and d - i_top >= -(r+1)//2
+    padt = r // 2 + 2
+    tbuf = jnp.full((Bp, padt + Dpad + W), -1, jnp.int8)
+    tbuf = jax.lax.dynamic_update_slice(
+        tbuf, jnp.pad(t.astype(jnp.int8), ((0, Bp - B), (0, 0)),
+                      constant_values=-1), (0, padt))
+    qlenp = jnp.pad(qlen.astype(jnp.int32), (0, Bp - B))
+    tlenp = jnp.pad(tlen.astype(jnp.int32), (0, Bp - B))
 
-    # reversed query buffer: qbuf[PADQ + p] = q[Lq0 - 1 - p]
-    S_q = round_up(PADQ + Lq0 + W + 8, 8)
-    qbuf = jnp.full((Bp, S_q), -1, jnp.int32)
-    qbuf = jax.lax.dynamic_update_slice(qbuf, q[:, ::-1], (0, PADQ))
-    # target buffer: tbuf[PADT + p] = t[p]
-    S_t = round_up(PADT + Lt0 + W + 8, 8)
-    tbuf = jnp.full((Bp, S_t), -1, jnp.int32)
-    tbuf = jax.lax.dynamic_update_slice(tbuf, t, (0, PADT))
+    kernel = functools.partial(
+        _kernel, r=r, W=W, bb=bb, n_chunks=n_chunks, qoff=padq + Lq,
+        toff=padt - 1, interpret=interpret)
+    scores, tb, _ = pl.pallas_call(
+        kernel, grid=(Bp // bb,),
+        out_shape=(jax.ShapeDtypeStruct((Bp,), jnp.int32),
+                   jax.ShapeDtypeStruct((Bp, n_chunks, r + 1), jnp.int8),
+                   jax.ShapeDtypeStruct((Bp, 2, W + 2), jnp.int32)),
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret, name=f"nw_diag_w{W}",
+    )(qbuf, tbuf, qlenp, tlenp)
 
-    kernel = functools.partial(_kernel, r=r, W=W, R=R, Lqp=Lq0,
-                               PADQ=PADQ, PADT=PADT)
-    grid = (Bp // LANE_TILE, Dpad // R)
-    scores, tb = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((S_q, LANE_TILE), lambda b, i: (0, b),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((S_t, LANE_TILE), lambda b, i: (0, b),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, LANE_TILE), lambda b, i: (0, b),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, LANE_TILE), lambda b, i: (0, b),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, LANE_TILE), lambda b, i: (0, b),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((R // 4, W, LANE_TILE), lambda b, i: (i, 0, b),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, Bp), jnp.int32),
-            jax.ShapeDtypeStruct((Dpad // 4, W, Bp), jnp.int8),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((W, LANE_TILE), jnp.int32),   # prev1 (diag d-1)
-            pltpu.VMEM((W, LANE_TILE), jnp.int32),   # prev2 (diag d-2)
-            pltpu.VMEM((W, LANE_TILE), jnp.int32),   # score accumulator
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=Bp * Dpad * W * 30,
-            bytes_accessed=Bp * (S_q + S_t) * 4 + Dpad * W * Bp // 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(qbuf.T, tbuf.T, qlen2, tlen2)
-
-    band_ok = jnp.abs(qlen2[0, :B] - tlen2[0, :B]) <= r
-    scores_out = jnp.where(band_ok, scores[0, :B], INF)
-    tb_out = jnp.swapaxes(tb, 1, 2)[:, :B, :]    # (Dpad//4, B, W')
-    return scores_out, tb_out
+    band_ok = jnp.abs(qlenp[:B] - tlenp[:B]) <= r
+    return jnp.where(band_ok, scores[:B], INF), tb[:B]
 
 
 def traceback_paths_diag(tb: np.ndarray, qlen: np.ndarray, tlen: np.ndarray,
@@ -254,12 +194,13 @@ def traceback_paths_diag(tb: np.ndarray, qlen: np.ndarray, tlen: np.ndarray,
     """Host decode of the anti-diagonal 2-bit traceback into edit paths —
     same output convention as ops/nw_band.traceback_paths (forward-order
     AlignmentState code lists; row 0 is a pure deletion tail).  Cell (i, j)
-    lives at diagonal d = i + j, sublane u' = (j - i + r - par) / 2 with
-    par = (d + r) & 1; four diagonals pack per byte."""
+    lives at diagonal d = i + j, half-band cell k = (j - i + r - par) / 2
+    with par = (d + r) & 1; four diagonals pack per byte.  The reference
+    for native/traceback.cpp's diagonal layout."""
     tb = np.asarray(tb).view(np.uint8)
     qlen = np.asarray(qlen).astype(np.int64)
     tlen = np.asarray(tlen).astype(np.int64)
-    B = tb.shape[1]
+    B = tb.shape[0]
     r = band_radius
     i = qlen.copy()
     j = tlen.copy()
@@ -275,9 +216,9 @@ def traceback_paths_diag(tb: np.ndarray, qlen: np.ndarray, tlen: np.ndarray,
         code = np.zeros(B, dtype=np.uint8)
         d = i + j
         par = (d + r) & 1
-        lanes = np.clip((j - i + r - par) >> 1, 0, tb.shape[2] - 1)
-        rows = np.clip(d >> 2, 0, tb.shape[0] - 1)
-        byte = tb[rows[read], np.nonzero(read)[0], lanes[read]]
+        cells = np.clip((j - i + r - par) >> 1, 0, tb.shape[2] - 1)
+        rows = np.clip(d >> 2, 0, tb.shape[1] - 1)
+        byte = tb[np.nonzero(read)[0], rows[read], cells[read]]
         code[read] = (byte >> (2 * (d[read] & 3)).astype(np.uint8)) & 3
         code[del_row] = AlignmentState.DELETION
         code_mat[s] = code

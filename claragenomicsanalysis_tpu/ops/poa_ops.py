@@ -1,6 +1,6 @@
 """Batched partial-order-alignment device ops.
 
-TPU-native redesign of the reference's generatePOAKernel pipeline
+XLA redesign of the reference's generatePOAKernel pipeline
 (reference: cudapoa/src/cudapoa_kernels.cu, cudapoa_topsort.cuh,
 cudapoa_nw.cuh, cudapoa_add_alignment.cuh, cudapoa_generate_consensus.cuh,
 cudapoa_generate_msa.cuh [U]).  Where the reference mutates a pointer-rich DAG
@@ -434,7 +434,8 @@ def consensus(state: PoaState, order, rank, max_cons: int):
     applies the oracle's lexicographic choice (edge weight, pred score,
     -pred index) to every node simultaneously; nodes at depth <= k are final
     after k sweeps, so the while_loop converges in graph-depth sweeps —
-    ~20x faster than a 1-node-per-step scan on TPU (tiny-op step overhead).
+    far fewer loop steps than a 1-node-per-step scan (tiny-op step
+    overhead).
     """
     N, P = state.pred.shape
     idx = jnp.arange(N, dtype=jnp.int32)
@@ -531,7 +532,7 @@ def msa_columns(state: PoaState, order, rank):
         pcols = jnp.where(pok, _padget(col, gp.reshape(-1), -1).reshape(gp.shape), -1)
         c = jnp.max(pcols) + 1
         do = act & unassigned
-        gidx = jnp.where(gok & do, group, -1)      # -1 slots dropped
+        gidx = jnp.where(gok & do, group, N)       # N slots dropped
         col = col.at[gidx].set(c, mode="drop")
         return col, ()
 
@@ -546,8 +547,14 @@ def msa_rows(state: PoaState, col, n_cols, max_cols: int):
 
     def one(path):
         c = _padget(col, path, -1)
-        c = jnp.where(path >= 0, c, -1)            # -1 dropped by scatter
+        c = jnp.where((path >= 0) & (c >= 0), c, max_cols)   # dropped
         b = _padget(state.base, path, -1)
-        return jnp.full(max_cols, -1, jnp.int32).at[c].set(b, mode="drop")
+        # two nodes of one path can share a column; the later one wins, as
+        # in the oracle's in-order writes.  A plain scatter of duplicate
+        # indices leaves the winner to the backend (a GPU picks either), so
+        # scatter the path position with max and gather the base after.
+        last = jnp.full(max_cols, -1, jnp.int32).at[c].max(
+            jnp.arange(path.shape[0], dtype=jnp.int32), mode="drop")
+        return jnp.where(last >= 0, b[jnp.maximum(last, 0)], -1)
 
     return jax.vmap(one)(state.paths)

@@ -10,6 +10,7 @@ output is bit-identical to an uninterrupted one (asserted by tests).
 import json
 import os
 
+from ..core.bufferplan import anchor_capacity
 from ..core.config import MapperConfig
 from ..core.types import Overlap
 from ..io.paf import format_paf_row
@@ -21,7 +22,7 @@ def _pair_name(qf, ql, tf, tl) -> str:
 
 
 def map_all_vs_all_resumable(parser, cfg: MapperConfig, work_dir: str,
-                             max_anchors: int = 1 << 24,
+                             max_anchors: int | None = None,
                              fail_after_pairs: int | None = None,
                              mesh=None):
     """Resumable all-vs-all mapping.  `fail_after_pairs` injects a crash after
@@ -31,6 +32,8 @@ def map_all_vs_all_resumable(parser, cfg: MapperConfig, work_dir: str,
     Returns (overlaps sorted canonically, n_pairs_computed, n_pairs_skipped).
     """
     os.makedirs(work_dir, exist_ok=True)
+    if max_anchors is None:
+        max_anchors = anchor_capacity()
     manifest_path = os.path.join(work_dir, "manifest.json")
     done: dict[str, bool] = {}
     if os.path.exists(manifest_path):

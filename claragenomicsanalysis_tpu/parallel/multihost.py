@@ -29,8 +29,8 @@ def initialize_distributed(coordinator_address: str | None = None,
                            process_id: int | None = None) -> None:
     """Form the multi-host process group (no-op when single-process).
 
-    Arguments mirror jax.distributed.initialize; on TPU pods all three are
-    auto-detected from the environment and may be omitted."""
+    Arguments mirror jax.distributed.initialize; on clusters that JAX
+    detects from the environment all three may be omitted."""
     if num_processes is not None and num_processes <= 1:
         return
     jax.distributed.initialize(coordinator_address=coordinator_address,

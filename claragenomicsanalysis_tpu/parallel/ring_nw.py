@@ -2,8 +2,8 @@
 
 The reference has NO cross-device story for one problem (its long-sequence
 axis is handled algorithmically: banding + Hirschberg).  This is the
-TPU-native extension: when one pair is too long for a single core's
-VMEM-resident DP stripe, the DP matrix's *target* axis is sharded over the
+extension: when one pair is too long for a single device, the DP matrix's
+*target* axis is sharded over the
 'sp' mesh axis and the wavefront is pipelined systolically:
 
 - device d owns target columns [d*S, (d+1)*S) (t is sharded over 'sp');

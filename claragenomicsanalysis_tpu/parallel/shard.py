@@ -69,9 +69,9 @@ def sharded_banded_nw(q, qlen, t, tlen, band_radius: int, mesh: Mesh):
 
 def sharded_poa(program, seqs, weights, lens, n_seqs, mesh: Mesh):
     """Data-parallel POA: window dim split over 'data' via shard_map —
-    each device runs `program` (the XLA window program OR a Pallas kernel
-    backend from models.poa._window_program) on its local window slice.
-    Merging is concatenation, so N-device == 1-device bit-for-bit.
+    each device runs `program` (the XLA window program of
+    models.poa._build_program) on its local window slice.  Merging is
+    concatenation, so N-device == 1-device bit-for-bit.
 
     When the mesh spans PROCESSES (multi-host correction, SURVEY §5.8),
     host inputs — identical on every host by construction — become global
@@ -200,7 +200,7 @@ def _routed_sizes(qidx, tidx, qid0, n_reads, mesh: Mesh):
         dest = jnp.clip((q_arrays["read_id"] - qid0) * n_rep // n_reads,
                         0, n_rep - 1)
         # n_rep masked sums (a scatter-add with millions of duplicate
-        # indices serializes on TPU; n_rep is tiny)
+        # indices serializes; n_rep is tiny)
         buckets = jnp.stack([jnp.sum(jnp.where(dest == d, cnt, 0))
                              for d in range(n_rep)])
         return (jax.lax.all_gather(buckets, "rep", axis=0),
@@ -243,7 +243,7 @@ def _routed_match_chain(qidx, tidx, lo, cum, qid0, n_reads, cap_local: int,
         sd, perm = jax.lax.sort((dest, iota), num_keys=1, is_stable=True)
         # bucket bounds from the SORTED dest (a bincount here would
         # scatter-add millions of duplicate indices into n_rep bins, which
-        # serializes on TPU — docs/DESIGN.md §6)
+        # serializes)
         bins = jnp.arange(n_rep, dtype=jnp.int32)
         offs0 = jnp.searchsorted(sd, bins, side="left").astype(jnp.int32)
         ends = jnp.searchsorted(sd, bins, side="right").astype(jnp.int32)

@@ -24,17 +24,20 @@ _PART_RE = re.compile(r"part_p(\d+)_r(\d+)\.npy$")
 
 
 def map_all_vs_all_sharded(parser, cfg, out_dir: str, mesh,
-                           max_anchors: int = 1 << 24) -> tuple:
+                           max_anchors: int | None = None) -> tuple:
     """All-vs-all mapping with SHARDED output: this process writes
     `part_p{pair}_r{shard}.npy` (an (8, n) canonical overlap-rows array)
     for exactly the rep shards it owns; no host ever materializes the
     global overlap set.  Returns (paths written locally, n_pairs)."""
+    from ..core.bufferplan import anchor_capacity
     from ..models.mapper import (IndexCache, Overlapper,
                                  _pack2_ok_global)
     from .shard import sharded_match_chain
     if mesh.shape.get("rep", 1) < 2:
         raise ValueError("sharded output needs a mesh with a rep axis >= 2")
     os.makedirs(out_dir, exist_ok=True)
+    if max_anchors is None:
+        max_anchors = anchor_capacity()
     chunks = parser.get_chunks(cfg.index_size_mb * 1_000_000)
     cache = IndexCache()
     written: list[str] = []

@@ -1,7 +1,7 @@
 """Host pipelining helpers (reference:
 common/utils/.../threadsafe_containers.hpp [U]).
 
-On TPU most of the reference's producer/consumer machinery is replaced by
+Here most of the reference's producer/consumer machinery is replaced by
 JAX's async dispatch (the host thread runs ahead of the device); what remains
 useful is a bounded prefetch pipeline for overlapping host-side I/O/packing
 with device compute, used by the mapper's (query-batch x target-batch) loop.

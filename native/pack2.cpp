@@ -4,10 +4,8 @@
 //
 // The NumPy version makes ~5 passes over the (B, L) int8 matrix (clip,
 // astype, reshape, three shift-or combines) plus a 2-pass argwhere scan
-// for ambiguous-base positions; at a 100 Mbp run's chunk shape that is
-// ~0.4-0.8 s per chunk of pure host time on the mapper's critical path
-// (bench_logs/0820_1318_map_20mbp_fenced.log: pack 0.8 s of a 2.83 s
-// fenced run).  This fuses everything into ONE linear pass per row:
+// for ambiguous-base positions, pure host time on the mapper's critical
+// path at a 100 Mbp run's chunk shape.  This fuses everything into ONE linear pass per row:
 // pack four clipped bases per output byte and record in-span negative
 // (N) positions as they fly by, in the same row-major order
 // np.argwhere produces.  Semantics are bit-identical to pack_reads'

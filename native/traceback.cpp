@@ -3,13 +3,20 @@
 // cudaaligner/src/ukkonen_gpu.cu and the host CIGAR RLE of
 // cudaaligner/src/alignment_impl.cpp [U]).
 //
-// The device kernels emit an (Lq, B, W) uint8 array of AlignmentState codes
-// (0 match, 1 mismatch, 2 insertion, 3 deletion; band lane = r + j - i).
+// Two layouts of AlignmentState codes (0 match, 1 mismatch, 2 insertion,
+// 3 deletion) come from the device:
+//   row  — ops/nw_band.banded_nw: (Lq, B, W) one code per byte, band lane
+//          r + j - i;
+//   diag — ops/nw_diag_pallas: (B, ceil((Lq+Lt+1)/4), r+1), four
+//          anti-diagonals per byte; cell (i, j) is at diagonal d = i + j,
+//          half-band cell (j - i + r - par) / 2 with par = (d + r) & 1,
+//          bits 2 * (d % 4).
 // The walk is inherently serial per problem, so it belongs on the host; this
 // C++ pass replaces the vectorized-NumPy lockstep walk with a single linear
 // scan per problem and fuses the CIGAR run-length encoding into the same
-// pass.  Semantics are bit-identical to ops/nw_band.traceback_paths and
-// cpu/nw_oracle.path_to_cigar (asserted by tests/test_native_traceback.py).
+// pass.  Semantics are bit-identical to ops/nw_band.traceback_paths,
+// ops/nw_diag_pallas.traceback_paths_diag and cpu/nw_oracle.path_to_cigar
+// (asserted by tests/test_native_traceback.py).
 //
 // Build: native/build.sh -> claragenomicsanalysis_tpu/io/_native/libtraceback.so
 
@@ -39,13 +46,13 @@ void append_run(std::string* cigar, long count, char op) {
 
 extern "C" {
 
-// tb: row-major uint8 — (Lq, B, W) one code per byte when packed == 0, or
-// (ceil(Lq/4), B, W) four 2-bit codes per byte (DP row i at array row i/4,
-// bits 2*(i%4)) when packed == 1.  qlen/tlen: (B,) int32; r: band radius.
-// extended: 0 -> M/I/D CIGAR ops (match+mismatch fold to M), 1 -> =/X/I/D.
-void* cga_tb_decode(const uint8_t* tb, long Lq, long B, long W,
+// tb: C-order uint8 — (rows, B, W) in the row layout (diag == 0), or
+// (B, rows, W) in the diag layout (diag == 1).  qlen/tlen: (B,) int32;
+// r: band radius.  extended: 0 -> M/I/D CIGAR ops (match+mismatch fold to
+// M), 1 -> =/X/I/D.
+void* cga_tb_decode(const uint8_t* tb, long rows, long B, long W,
                     const int32_t* qlen, const int32_t* tlen, long r,
-                    int extended, int packed) {
+                    int extended, int diag) {
     auto* res = new (std::nothrow) Result();
     if (!res) return nullptr;
     res->paths.resize(B);
@@ -68,16 +75,22 @@ void* cga_tb_decode(const uint8_t* tb, long Lq, long B, long W,
             uint8_t code;
             if (i == 0) {
                 code = kDeletion;  // row 0: pure deletion tail
+            } else if (diag) {
+                const long d = i + j;
+                long cell = (j - i + r - ((d + r) & 1)) >> 1;
+                if (cell < 0) cell = 0;
+                if (cell > W - 1) cell = W - 1;
+                long row = d >> 2;
+                if (row > rows - 1) row = rows - 1;
+                const uint8_t byte = tb[(b * rows + row) * W + cell];
+                code = (byte >> (2 * (d & 3))) & 3;
             } else {
                 long lane = r + j - i;
                 if (lane < 0) lane = 0;
                 if (lane > W - 1) lane = W - 1;
-                if (packed) {
-                    uint8_t byte = tb[(((i - 1) >> 2) * B + b) * W + lane];
-                    code = (byte >> (2 * ((i - 1) & 3))) & 3;
-                } else {
-                    code = tb[((i - 1) * B + b) * W + lane];
-                }
+                long row = i - 1;
+                if (row > rows - 1) row = rows - 1;
+                code = tb[(row * B + b) * W + lane];
             }
             path.push_back(code);
             if (code == kMatch || code == kMismatch || code == kInsertion) --i;

@@ -1,10 +1,8 @@
-"""Read-correction throughput at configurable scale (BASELINE config #5).
+"""Read-correction throughput at configurable scale on the accelerator.
 
-The round-3 number (13.7 kbases/s on 200x2kb) is far from genome scale;
-this script is the ratchet: default shape is 1000 x 5 kb (~5 Mb of reads,
-~10x coverage) — the scale the >=50 kb/s round-4 target is defined on.
-
-Prints one JSON line compatible with bench_all.py's output shape.
+Default shape: 1000 x 5 kb (~5 Mb of reads, ~10x coverage, 5 % error).
+Prints JSON lines: the compile run, then bases/s of the best warm run and,
+with --quality, the edit-distance reduction against the simulated truth.
 """
 
 import argparse
@@ -13,35 +11,6 @@ import sys
 import time
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
-
-
-def _edit_dists(pairs):
-    """Batched edit distances on device (Myers bottom row), chunked."""
-    import numpy as np
-    from claragenomicsanalysis_tpu.ops.myers import myers_bottom_row_best
-    from claragenomicsanalysis_tpu.utils.genomeutils import encode
-
-    def p2(x):
-        return max(64, 1 << (max(x, 1) - 1).bit_length())
-
-    out = []
-    CH = 128
-    for s0 in range(0, len(pairs), CH):
-        ch = pairs[s0: s0 + CH]
-        Lq = p2(max(len(a) for a, _ in ch))
-        Lt = p2(max(len(b) for _, b in ch))
-        B = p2(len(ch))
-        q = np.full((B, Lq), -1, np.int8)
-        t = np.full((B, Lt), -1, np.int8)
-        qlen = np.zeros(B, np.int32)
-        tlen = np.zeros(B, np.int32)
-        for i, (a, b) in enumerate(ch):
-            q[i, : len(a)] = encode(a)
-            t[i, : len(b)] = encode(b)
-            qlen[i], tlen[i] = len(a), len(b)
-        _, sc = myers_bottom_row_best(q, qlen, t, tlen)
-        out.extend(int(x) for x in np.asarray(sc)[: len(ch)])
-    return out
 
 
 def main():
@@ -53,20 +22,19 @@ def main():
     ap.add_argument("--runs", type=int, default=1,
                     help="timed runs after the compile run (report best)")
     ap.add_argument("--window-length", type=int, default=None,
-                    help="CorrectConfig.window_length override (the v2 POA "
-                         "kernels need <=128 to fit VMEM at S=P=16)")
+                    help="CorrectConfig.window_length override")
     ap.add_argument("--max-support", type=int, default=None)
     ap.add_argument("--quality", action="store_true",
                     help="also report edit-distance-to-truth before/after "
                          "(device Myers)")
-    ap.add_argument("--fenced", action="store_true",
-                    help="truthful per-stage splits: device-fence every "
-                         "trace_range (profiling only — slows the run)")
     args = ap.parse_args()
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+    from claragenomicsanalysis_tpu.bench.harness import (device_record,
+                                                         require_accelerator)
+    from claragenomicsanalysis_tpu.utils.compile_cache import \
+        enable_compile_cache
+    require_accelerator()
+    enable_compile_cache()
 
     from claragenomicsanalysis_tpu.core.config import (CorrectConfig,
                                                        MapperConfig)
@@ -96,8 +64,6 @@ def main():
                                             min_bases_per_residue=500), **kw)
 
     from claragenomicsanalysis_tpu.utils import profiling
-    if args.fenced:
-        profiling.set_fenced_timings(True)
 
     def timed_run():
         profiling.reset_stage_timings()
@@ -112,7 +78,7 @@ def main():
     res, cold, cold_stages = timed_run()    # compile run
     print(json.dumps({"label": "compile", "wall_s": round(cold, 1),
                       "bases_per_s": round(total_bases / cold, 1),
-                      "fenced": args.fenced, "stages": cold_stages}),
+                      "stages": cold_stages}),
           flush=True)
     best, best_stages = cold, cold_stages
     for _ in range(args.runs):
@@ -121,27 +87,24 @@ def main():
             best, best_stages = dt, stages
     bases = sum(len(r.seq) for r in reads)
     print(json.dumps({
-        "metric": f"read-correction bases/s (1 chip, "
+        "metric": f"read-correction bases/s ("
                   f"{args.reads}x{args.read_len//1000}kb @{args.error_rate:.0%} err)",
         "value": round(bases / best, 1), "unit": "bases/s",
-        "vs_baseline": None,
-        "fenced": args.fenced, "stages": best_stages,
+        "device": device_record(), "stages": best_stages,
         "detail": f"{res.n_polished}/{res.n_windows} windows polished, "
                   f"{best:.1f} s warm, window_length="
                   f"{cfg.window_length}, max_support={cfg.max_support}"}),
         flush=True)
 
     if args.quality:
-        from claragenomicsanalysis_tpu.utils.genomeutils import (
-            reverse_complement)
-
-        def truth_of(r):
-            span = genome[r.reference_start:r.reference_end]
-            return reverse_complement(span) if r.strand == "-" else span
-
-        truths = [truth_of(r) for r in reads]
-        d_orig = _edit_dists(list(zip([r.seq for r in reads], truths)))
-        d_corr = _edit_dists(list(zip(res.seqs, truths)))
+        from claragenomicsanalysis_tpu.evaluation import (TruthRecord,
+                                                          edit_distances,
+                                                          read_truth_seqs)
+        truths = read_truth_seqs(genome, [
+            TruthRecord(r.name, r.reference_start, r.reference_end,
+                        r.strand) for r in reads])
+        d_orig = edit_distances(list(zip([r.seq for r in reads], truths)))
+        d_corr = edit_distances(list(zip(res.seqs, truths)))
         so, sc_ = sum(d_orig), sum(d_corr)
         print(json.dumps({
             "metric": "correction edit-distance reduction",

@@ -1,9 +1,7 @@
-"""On-chip micro-profile of the mapper's match stage — the confirmed
-100 Mbp device wall (8.0 s fenced of 19.1 s; bench_logs/
-0820_final_map_fenced.log).  Times match_count's two sort-based
-searchsorteds and match_expand's fill paths separately on
-realistic-scale index arrays, so the next optimization targets the
-measured sub-part.
+"""Micro-profile of the mapper's match stage on the accelerator.  Times
+match_count's two sort-based searchsorteds and match_expand's fill paths
+separately on realistic-scale index arrays (warm median of 5 runs ending
+in block_until_ready), so an optimization targets the measured sub-part.
 
 Usage: python scripts/profile_match.py [--elems 2_000_000]
 """
@@ -23,12 +21,15 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
     import jax.numpy as jnp
     import numpy as np
 
-    from claragenomicsanalysis_tpu.bench.harness import time_scanned
+    from claragenomicsanalysis_tpu.bench.harness import (require_accelerator,
+                                                         time_call)
+    from claragenomicsanalysis_tpu.utils.compile_cache import \
+        enable_compile_cache
+    require_accelerator()
+    enable_compile_cache()
     from claragenomicsanalysis_tpu.ops import map_ops
     from claragenomicsanalysis_tpu.utils.mathutils import round_up
 
@@ -52,7 +53,6 @@ def main():
     qidx, tidx = make_index(1), make_index(2)
     KEYS = ("rep", "read_id", "pos", "dir", "n_elems")
     flat = tuple(qidx[k] for k in KEYS) + tuple(tidx[k] for k in KEYS)
-    datasets = [flat]
 
     def undict(args):
         q = dict(zip(KEYS, args[:5]))
@@ -72,7 +72,7 @@ def main():
         q, t = undict(args)
         return map_ops.match_count(q, t)[2]
 
-    dt = time_scanned(count_fn, datasets, loops=8)
+    _, _, dt = time_call(jax.jit(count_fn), *flat)
     print(json.dumps({"phase": "match_count", "ms": round(dt * 1e3, 2)}),
           flush=True)
 
@@ -82,7 +82,7 @@ def main():
         a = map_ops.match_expand(q, t, lo2, cum2, cap=cap, skip_self=True)
         return a["q_read"]
 
-    dt2 = time_scanned(expand_fn, datasets, loops=8)
+    _, _, dt2 = time_call(jax.jit(expand_fn), *flat)
     print(json.dumps({"phase": "count+expand", "ms": round(dt2 * 1e3, 2),
                       "expand_ms_est": round((dt2 - dt) * 1e3, 2)}),
           flush=True)

@@ -1,15 +1,11 @@
-"""Wide-band feasibility routing (round-5 regression for the
-correct_full crash, bench_logs/0820_1318_correct_full.log): spans whose
-band radius makes BOTH Pallas banded layouts exceed scoped VMEM
-(r=1024 needs 20.77 MiB in the row layout) must not reach a Mosaic
-compile — myers_align_batch routes them to Hirschberg, and banded.py's
-'diag' kind falls back to the XLA scan twin as the safety net."""
+"""Wide-band routing: a span whose band radius makes the traceback exceed
+its kernel's budget must come back as a valid optimal path through
+Hirschberg, not a crash, and a band wider than the Triton kernel holds must
+take the XLA twin under "auto" with the same paths."""
 
 import numpy as np
 
 from claragenomicsanalysis_tpu.core.config import AlignerConfig
-from claragenomicsanalysis_tpu.ops.nw_band_pallas import (ROW_VMEM_BUDGET,
-                                                          vmem_row_bytes)
 from claragenomicsanalysis_tpu.utils.genomeutils import encode
 
 
@@ -17,24 +13,11 @@ def _rand(rng, n):
     return "".join("ACGT"[c] for c in rng.integers(0, 4, n))
 
 
-def test_vmem_row_bytes_feasibility_frontier():
-    """The streamed-target/fori-row kernel must keep the known-good
-    on-chip shapes feasible, ADMIT the correction-critical wide-band
-    shapes the pre-round-5 kernel could not (Lq=2048/r=1024 measured
-    20.77 MiB then; Lq=8192/r<=512 is what keeps 5 kb spans off the
-    O(Lq*Lt) Hirschberg path), and still flag band widths beyond ~1.5 k
-    as infeasible."""
-    assert vmem_row_bytes(512, 512, 64) <= ROW_VMEM_BUDGET
-    assert vmem_row_bytes(8192, 8192, 128) <= ROW_VMEM_BUDGET
-    assert vmem_row_bytes(2048, 2048, 1024) <= ROW_VMEM_BUDGET   # new
-    assert vmem_row_bytes(8192, 8192, 512) <= ROW_VMEM_BUDGET    # new
-    assert vmem_row_bytes(4096, 4096, 2048) > ROW_VMEM_BUDGET
-
-
 def test_myers_routes_wide_band_spans_to_hirschberg():
-    """A high-error span whose pow2 band radius is VMEM-infeasible for
-    both banded kernels must come back as a VALID optimal path (via the
-    Hirschberg route), not a crash."""
+    """A high-error span whose pow2 band radius puts its traceback over the
+    selected kernel's budget (here the XLA twin's, on the CPU) must come
+    back as a VALID optimal path (via the Hirschberg route), not a
+    crash."""
     from claragenomicsanalysis_tpu.align.myers_aligner import \
         myers_align_batch
 
@@ -50,7 +33,7 @@ def test_myers_routes_wide_band_spans_to_hirschberg():
     tlen = np.array([1500], np.int32)
     paths, dists, statuses = myers_align_batch(
         q, qlen, t, tlen, AlignerConfig(L, L, 1, band_radius=2048),
-        backend="pallas", queries=qs, targets=ts)
+        backend="auto", queries=qs, targets=ts)
     p = paths[0]
     assert p, "no path returned"
     qc = sum(1 for c in p if c in (0, 1, 2))
@@ -61,36 +44,29 @@ def test_myers_routes_wide_band_spans_to_hirschberg():
 
 
 def test_banded_xla_twin_fallback_paths_correct():
-    """resolve('pallas') at an infeasible (Lq, r) must route to the XLA
-    twin (via the _XlaTb marker) and decode to the same paths as the
-    explicit 'xla' backend."""
-    from claragenomicsanalysis_tpu.ops.banded import resolve
+    """A band wider than the Triton kernel holds (r > MAX_RADIUS) takes the
+    XLA twin under "auto" even where the kernel is usable, and decodes to
+    the same paths as the explicit 'xla' backend."""
+    from claragenomicsanalysis_tpu.ops import banded
+    from claragenomicsanalysis_tpu.ops.nw_diag_pallas import MAX_RADIUS
 
     rng = np.random.default_rng(5)
-    B, L, r = 2, 4096, 2048
+    B, L, r = 2, 64, MAX_RADIUS + 1
     q = np.full((B, L), -1, np.int8)
     t = np.full((B, L), -1, np.int8)
     qlen = np.zeros(B, np.int32)
     tlen = np.zeros(B, np.int32)
     for b in range(B):
-        s = _rand(rng, 1200)
-        # mutate ~30%: wide bands are the high-divergence regime
-        sl = list(s)
-        for _ in range(360):
-            sl[int(rng.integers(0, len(sl)))] = "ACGT"[int(rng.integers(0, 4))]
-        m = "".join(sl)
+        s = _rand(rng, 50)
+        m = _rand(rng, 40)           # unrelated: a wide-band problem
         q[b, :len(s)] = encode(s)
         t[b, :len(m)] = encode(m)
         qlen[b], tlen[b] = len(s), len(m)
 
-    _, nw_p, dec_p = resolve("pallas")
-    sc_p, tb_p = nw_p(q, qlen, t, tlen, r)
-    from claragenomicsanalysis_tpu.ops.banded import _XlaTb
-    assert isinstance(tb_p, _XlaTb), "expected the XLA twin fallback"
-    paths_p = dec_p(tb_p, qlen, tlen, r)
-
-    _, nw_x, dec_x = resolve("xla")
-    sc_x, tb_x = nw_x(q, qlen, t, tlen, r)
-    paths_x = dec_x(tb_x, qlen, tlen, r)
+    sc_p, tb_p = banded.banded_nw(q, qlen, t, tlen, r, "auto",
+                                  interpret=True)
+    assert tb_p.kind == "xla", "expected the XLA twin fallback"
+    sc_x, tb_x = banded.banded_nw(q, qlen, t, tlen, r, "xla")
     assert np.array_equal(np.asarray(sc_p), np.asarray(sc_x))
-    assert paths_p == paths_x
+    assert (banded.traceback_paths(tb_p, qlen, tlen, r)
+            == banded.traceback_paths(tb_x, qlen, tlen, r))

@@ -135,8 +135,7 @@ def test_polish_depth_buckets_match_global_shape():
 
     # unbucketed baseline: every job at the one global max-depth shape
     bs = _polish_batch_size(cfg, cfg.max_support + 1)
-    batch = create_batch(batch_size=bs, max_poas=len(jobs),
-                         backend=cfg.poa_backend)
+    batch = create_batch(batch_size=bs, max_poas=len(jobs))
     for seqs in jobs:
         batch.add_poa_group(seqs)
     batch.generate_poa()

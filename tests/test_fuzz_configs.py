@@ -18,9 +18,8 @@ from claragenomicsanalysis_tpu.utils.genomeutils import (
     generate_random_genome, mutate_sequence)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas2"])
 @pytest.mark.parametrize("pa", [(2, 1), (3, 2), (8, 8)])
-def test_poa_tight_capacity_corners(rng, pa, backend):
+def test_poa_tight_capacity_corners(rng, pa):
     P, A = pa
     bs = BatchSize(max_sequence_size=40, max_sequences_per_poa=5,
                    max_pred_per_node=P, max_aligned_per_node=A)
@@ -32,7 +31,7 @@ def test_poa_tight_capacity_corners(rng, pa, backend):
         windows.append([base] + [
             mutate_sequence(base, int(rng.integers(1, 8)), rng)[:40]
             for _ in range(n - 1)])
-    batch = create_batch(batch_size=bs, scores=sc, backend=backend)
+    batch = create_batch(batch_size=bs, scores=sc)
     for w in windows:
         batch.add_poa_group(w)
     cons, covs, stats = batch.get_consensus()

@@ -171,10 +171,12 @@ def test_banded_escalate_matches_myers_paths():
     cfg = AlignerConfig(L, L, B, band_radius=256)
     p_m, d_m, s_m = myers_align_batch(q, qlen, t, tlen, cfg,
                                       backend="pallas",
-                                      queries=qs, targets=ts)
+                                      queries=qs, targets=ts,
+                                      interpret=True)
     p_e, d_e, s_e = banded_escalate_align_batch(q, qlen, t, tlen, cfg,
                                                 backend="pallas",
-                                                queries=qs, targets=ts)
+                                                queries=qs, targets=ts,
+                                                interpret=True)
     assert list(np.asarray(d_e)) == list(np.asarray(d_m))
     assert p_e == p_m
     assert list(s_e) == list(s_m)

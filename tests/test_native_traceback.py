@@ -1,4 +1,5 @@
-"""Native C++ traceback decoder == pure-Python decoder, bit-for-bit, and its
+"""Native C++ traceback decoder == the NumPy decoders, bit-for-bit, in the
+XLA twin's row layout and the Triton kernel's anti-diagonal layout, and its
 fused CIGARs == cpu/nw_oracle.path_to_cigar."""
 
 import numpy as np
@@ -9,9 +10,13 @@ from claragenomicsanalysis_tpu.ops import nw_band
 from claragenomicsanalysis_tpu.utils.genomeutils import (
     encode, generate_random_genome, mutate_sequence)
 
-native_traceback = pytest.importorskip(
-    "claragenomicsanalysis_tpu.io.native_traceback",
-    reason="native traceback decoder not built (run native/build.sh)")
+
+
+@pytest.fixture
+def native_traceback(native_libs):
+    return pytest.importorskip(
+        "claragenomicsanalysis_tpu.io.native_traceback",
+        reason="native traceback decoder did not build (g++ missing?)")
 
 
 def _tb_batch(rng, B=16, Lq=96, Lt=96, r=15):
@@ -29,7 +34,7 @@ def _tb_batch(rng, B=16, Lq=96, Lt=96, r=15):
     return np.asarray(tb), qlen, tlen, np.asarray(scores), r
 
 
-def test_native_matches_python(rng):
+def test_native_matches_python(native_traceback, rng):
     tb, qlen, tlen, scores, r = _tb_batch(rng)
     py = nw_band.traceback_paths(tb, qlen, tlen, r, use_native="never")
     nat, cigars = native_traceback.decode(tb, qlen, tlen, r)
@@ -39,7 +44,7 @@ def test_native_matches_python(rng):
             assert c == path_to_cigar(p)
 
 
-def test_native_extended_cigar(rng):
+def test_native_extended_cigar(native_traceback, rng):
     tb, qlen, tlen, scores, r = _tb_batch(rng, B=4)
     py = nw_band.traceback_paths(tb, qlen, tlen, r, use_native="never")
     _, cigars = native_traceback.decode(tb, qlen, tlen, r, extended=True)
@@ -48,7 +53,7 @@ def test_native_extended_cigar(rng):
             assert c == path_to_cigar(p, extended=True)
 
 
-def test_empty_problems():
+def test_empty_problems(native_traceback):
     tb = np.zeros((4, 2, 128), np.uint8)
     paths, cigars = native_traceback.decode(
         tb, np.array([0, 0], np.int32), np.array([0, 3], np.int32), 15)
@@ -56,13 +61,13 @@ def test_empty_problems():
     assert paths[1] == [3, 3, 3] and cigars[1] == "3D"
 
 
-def test_dispatch_default_uses_native(rng):
+def test_dispatch_default_uses_native(native_traceback, rng):
     tb, qlen, tlen, _, r = _tb_batch(rng, B=3)
     assert (nw_band.traceback_paths(tb, qlen, tlen, r)
             == nw_band.traceback_paths(tb, qlen, tlen, r, use_native="never"))
 
 
-def test_garbage_codes_terminate():
+def test_garbage_codes_terminate(native_traceback):
     # A band-overflow problem carries garbage move codes.  All-DELETION rows
     # with i > 0 used to decrement j forever; the walk must now stop within
     # qlen+tlen steps and leave a truncated path for callers to drop.
@@ -75,22 +80,46 @@ def test_garbage_codes_terminate():
         assert len(paths[b]) <= qlen[b] + tlen[b] + 1
 
 
-def _pack2bit(tb):
-    Lq = tb.shape[0]
-    pad = (-Lq) % 4
-    tbp = np.pad(tb, ((0, pad), (0, 0), (0, 0)))
-    out = np.zeros(((Lq + pad) // 4,) + tb.shape[1:], np.uint8)
-    for i in range(4):
-        out |= (tbp[i::4] & 3) << (2 * i)
-    return out
+def _diag_batch(rng, B, L, r, edits):
+    from claragenomicsanalysis_tpu.ops.nw_diag_pallas import \
+        banded_nw_diag_pallas
+    pairs = []
+    for _ in range(B):
+        a = generate_random_genome(int(rng.integers(1, L - edits)), rng)
+        pairs.append((a, mutate_sequence(a, int(rng.integers(0, edits + 1)),
+                                         rng)[:L]))
+    pairs += [("", "ACG"), ("ACG", ""), ("", ""), ("A" * (L // 2), "A")]
+    q = np.stack([encode(a, L) for a, _ in pairs])
+    t = np.stack([encode(b, L) for _, b in pairs])
+    qlen = np.array([len(a) for a, _ in pairs], np.int32)
+    tlen = np.array([len(b) for _, b in pairs], np.int32)
+    sc, tb = banded_nw_diag_pallas(q, qlen, t, tlen, r, interpret=True)
+    return (q, qlen, t, tlen), np.asarray(sc), np.asarray(tb)
 
 
-def test_packed_format_both_decoders(rng):
-    tb, qlen, tlen, _, r = _tb_batch(rng, B=6)
-    want = nw_band.traceback_paths(tb, qlen, tlen, r, use_native="never")
-    packed = _pack2bit(tb)
-    got_py = nw_band.traceback_paths(packed, qlen, tlen, r,
-                                     use_native="never", packed=True)
-    got_nat, _ = native_traceback.decode(packed, qlen, tlen, r, packed=True)
-    assert got_py == want
-    assert got_nat == want
+@pytest.mark.parametrize("r,L", [(1, 24), (4, 40), (13, 64), (31, 96),
+                                 (64, 128)])
+def test_native_diag_layout_matches_numpy_and_row_decoder(native_traceback,
+                                                          rng, r, L):
+    """The anti-diagonal layout: native decode == traceback_paths_diag on
+    every problem, and == the XLA twin's row-layout paths wherever the band
+    admits a solution."""
+    from claragenomicsanalysis_tpu.ops.nw_diag_pallas import \
+        traceback_paths_diag
+    (q, qlen, t, tlen), sc, tb = _diag_batch(rng, 6, L, r, r)
+    nat, cigars = native_traceback.decode(tb, qlen, tlen, r, layout="diag")
+    assert nat == traceback_paths_diag(tb, qlen, tlen, r)
+    _, row_tb = nw_band.banded_nw(q, qlen, t, tlen, r)
+    row = nw_band.traceback_paths(np.asarray(row_tb), qlen, tlen, r,
+                                  use_native="never")
+    for b, s in enumerate(sc):
+        if s < nw_band.INF:
+            assert nat[b] == row[b], b
+            assert cigars[b] == path_to_cigar(nat[b])
+
+
+def test_native_rejects_unknown_layout(native_traceback):
+    with pytest.raises(ValueError):
+        native_traceback.decode(np.zeros((1, 1, 1), np.uint8),
+                                np.zeros(1, np.int32), np.zeros(1, np.int32),
+                                0, layout="packed")

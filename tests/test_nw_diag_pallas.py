@@ -1,12 +1,17 @@
-"""Anti-diagonal banded-NW kernel (interpret mode on CPU) vs the XLA scan
-backend: scores and decoded paths bit-equal (ops/nw_diag_pallas.py)."""
+"""Anti-diagonal banded-NW Triton kernel (Pallas interpret mode on the CPU)
+vs the XLA scan twin and the cpu/nw_oracle banded DP: scores, decoded paths
+and the 2-bit move code of every reachable in-band cell bit-equal
+(ops/nw_diag_pallas.py, bench/kernel_checks.py)."""
 
 import numpy as np
 import pytest
 
+from claragenomicsanalysis_tpu.bench.kernel_checks import (check_banded,
+                                                           diag_codes)
+from claragenomicsanalysis_tpu.cpu import nw_oracle
 from claragenomicsanalysis_tpu.ops import nw_band
 from claragenomicsanalysis_tpu.ops.nw_diag_pallas import (
-    banded_nw_diag_pallas, traceback_paths_diag)
+    MAX_RADIUS, banded_nw_diag_pallas, tile_shape, traceback_paths_diag)
 from claragenomicsanalysis_tpu.utils.genomeutils import (
     encode, generate_random_genome, mutate_sequence)
 
@@ -23,41 +28,34 @@ def _check(pairs, Lq, Lt, r):
     q, qlen, t, tlen = _pack(pairs, Lq, Lt)
     s_scan, tb_scan = nw_band.banded_nw(q, qlen, t, tlen, r)
     s_d, tb_d = banded_nw_diag_pallas(q, qlen, t, tlen, r, interpret=True)
-    np.testing.assert_array_equal(np.asarray(s_scan), np.asarray(s_d))
+    s_d = np.asarray(s_d)
+    np.testing.assert_array_equal(np.asarray(s_scan), s_d)
     p_scan = nw_band.traceback_paths(np.asarray(tb_scan), qlen, tlen, r,
                                      use_native="never")
     p_d = traceback_paths_diag(np.asarray(tb_d), qlen, tlen, r)
-    # paths are the semantic output only where the band admits a solution;
-    # overflow problems (score INF) get status + empty path in the aligner
-    # and their walks over unreachable cells need not agree
-    for b, sc in enumerate(np.asarray(s_d)):
-        if sc < int(nw_band.INF):
-            assert p_scan[b] == p_d[b], b
+    for b, (a, c) in enumerate(pairs):
+        if s_d[b] >= int(nw_band.INF):
+            # outside the band: status + empty path in the aligner
+            assert abs(len(a) - len(c)) > r
+            continue
+        assert p_scan[b] == p_d[b], b
+        path, score, _ = nw_oracle.align(a, c, r)
+        assert (int(s_d[b]), p_d[b]) == (score, path), b
 
 
-def test_diag_matches_scan_backend(rng):
-    pairs = []
-    for _ in range(6):
-        a = generate_random_genome(int(rng.integers(1, 60)), rng)
-        b = mutate_sequence(a, int(rng.integers(0, 8)), rng)
-        pairs.append((a, b))
-    # boundary rows/cols + band overflow + empty-vs-empty
-    pairs += [("", "ACG"), ("ACG", ""), ("", ""), ("A" * 50, "A" * 3)]
-    _check(pairs, 64, 64, 8)
-
-
-@pytest.mark.parametrize("r", [4, 8, 13, 31])
-def test_diag_band_radii(rng, r):
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 8, 13, 31, 64])
+def test_band_radii(rng, r):
     pairs = []
     for _ in range(5):
         a = generate_random_genome(int(rng.integers(1, 90)), rng)
-        b = mutate_sequence(a, int(rng.integers(0, r)), rng)[:96]
+        b = mutate_sequence(a, int(rng.integers(0, r + 1)), rng)[:96]
         pairs.append((a, b))
-    _check(pairs, 96, 96, r)
+    # boundary rows/cols, empty-vs-empty, and a pair outside the band
+    pairs += [("", "ACG"), ("ACG", ""), ("", ""), ("A" * 50, "A" * 3)]
+    _check(pairs, 96, 104, r)
 
 
-def test_diag_asymmetric_lengths(rng):
-    # Lq != Lt padded shapes and length gaps inside/outside the band
+def test_asymmetric_lengths(rng):
     pairs = []
     for _ in range(6):
         a = generate_random_genome(int(rng.integers(20, 100)), rng)
@@ -67,127 +65,38 @@ def test_diag_asymmetric_lengths(rng):
     _check(pairs, 104, 64, 16)
 
 
-def test_diag_internal_batch_padding(rng):
-    pairs = [("ACGT", "ACGA"), ("A", "T"), ("GG", "GG")]
+def test_batch_padding_and_ambiguous_bases():
+    """B not a multiple of the program's problem block; N never matches."""
+    bb = tile_shape(4)[0]
+    pairs = [("ACGT", "ACGA"), ("A", "T"), ("GG", "GG"), ("ANNA", "ANNA")]
+    pairs += [("ACGTAC", "ACGTAC")] * (bb + 1 - len(pairs))
     q, qlen, t, tlen = _pack(pairs, 8, 8)
-    s, _ = banded_nw_diag_pallas(q, qlen, t, tlen, 4, interpret=True)
-    assert list(np.asarray(s))[:3] == [1, 1, 0]
+    s, tb = banded_nw_diag_pallas(q, qlen, t, tlen, 4, interpret=True)
+    assert list(np.asarray(s))[:4] == [1, 1, 0, 2]
+    assert np.asarray(tb).shape == (len(pairs), (8 + 8 + 4) // 4, 5)
 
 
-def test_diag_device_decode_matches_host(rng):
-    """traceback_paths_device(diag=True) (interpret mode) == the host
-    decoder on every in-band problem, including i==0 deletion tails."""
-    from claragenomicsanalysis_tpu.ops.tb_decode_pallas import (
-        traceback_paths_device)
-    pairs = []
-    for _ in range(6):
-        a = generate_random_genome(int(rng.integers(1, 90)), rng)
-        b = mutate_sequence(a, int(rng.integers(0, 10)), rng)[:96]
-        pairs.append((a, b))
-    pairs += [("", "ACG"), ("ACG", ""), ("A" * 40, "A" * 30)]
-    q, qlen, t, tlen = _pack(pairs, 96, 96)
-    r = 16
-    s_d, tb_d = banded_nw_diag_pallas(q, qlen, t, tlen, r, interpret=True)
-    host = traceback_paths_diag(np.asarray(tb_d), qlen, tlen, r)
-    dev = traceback_paths_device(tb_d, qlen, tlen, r, interpret=True,
-                                 diag=True)
-    for b, sc in enumerate(np.asarray(s_d)):
-        if sc < int(nw_band.INF):
-            assert host[b] == dev[b], b
+@pytest.mark.parametrize("r", [2, 7, 16])
+def test_move_codes_equal_oracle_on_every_reachable_cell(r):
+    """kernel_checks.check_banded: codes of every reachable in-band cell ==
+    the oracle's tie-break == the XLA twin's, plus scores and paths."""
+    out = check_banded(6, 48, r, seed=r, n_oracle=6, runs=1,
+                       interpret=True)
+    assert out["equal"] and out["oracle_cells"] > 0
 
 
-def test_banded_resolve_kinds(rng):
-    """ops/banded.resolve: every kind produces identical paths on the same
-    batch (the dispatch seam the aligner/myers/hirschberg sites share)."""
-    from claragenomicsanalysis_tpu.ops.banded import resolve
-    pairs = []
-    for _ in range(5):
-        a = generate_random_genome(int(rng.integers(10, 80)), rng)
-        b = mutate_sequence(a, int(rng.integers(0, 8)), rng)
-        pairs.append((a, b))
-    q, qlen, t, tlen = _pack(pairs, 88, 88)
-    r = 16
-    outs = {}
-    for backend in ("xla", "pallas-row", "pallas-diag"):
-        kind, nw_fn, decode_fn = resolve(backend)
-        s, tb = nw_fn(q, qlen, t, tlen, r)
-        outs[kind] = (np.asarray(s), decode_fn(tb, qlen, tlen, r))
-    s0, p0 = outs["xla"]
-    for kind in ("row", "diag"):
-        s, p = outs[kind]
-        np.testing.assert_array_equal(s0, s[: len(s0)])
-        for b, sc in enumerate(s0):
-            if sc < int(nw_band.INF):
-                assert p0[b] == p[b], (kind, b)
+def test_diag_codes_address_the_layout():
+    """diag_codes reads cell (i, j) at diagonal i+j, half-band cell
+    (j-i+r-par)/2, bits 2*(d%4)."""
+    r = 3
+    tb = np.zeros((1, 4, r + 1), np.uint8)
+    i, j = np.array([2]), np.array([3])        # d = 5, par = 0, k = 2
+    tb[0, 1, 2] = 0b11 << 2
+    assert diag_codes(tb, 0, i, j, r)[0] == 3
 
 
-def test_diag_fuzz_vs_oracle(rng):
-    """Random shapes/radii; paths must cost exactly the reported distance
-    and reconstruct valid global alignments (oracle contract)."""
-    from claragenomicsanalysis_tpu.cpu import nw_oracle
-    for _ in range(4):
-        r = int(rng.integers(4, 24))
-        Lq = int(rng.integers(8, 120))
-        pairs = []
-        for _ in range(4):
-            a = generate_random_genome(int(rng.integers(1, Lq)), rng)
-            b = mutate_sequence(a, int(rng.integers(0, r)), rng)[:Lq]
-            pairs.append((a, b))
-        q, qlen, t, tlen = _pack(pairs, Lq + 8, Lq + 8)
-        s_d, tb_d = banded_nw_diag_pallas(q, qlen, t, tlen, r,
-                                          interpret=True)
-        paths = traceback_paths_diag(np.asarray(tb_d), qlen, tlen, r)
-        for b, (a_s, b_s) in enumerate(pairs):
-            sc = int(np.asarray(s_d)[b])
-            if sc >= int(nw_band.INF):
-                continue
-            path = paths[b]
-            cost = sum(1 for c in path if c != 0)
-            assert cost == sc
-            nq = sum(1 for c in path if c in (0, 1, 2))
-            nt = sum(1 for c in path if c in (0, 1, 3))
-            assert (nq, nt) == (len(a_s), len(b_s))
-            # banded DP = full DP whenever the optimum fits the band
-            full = int(nw_oracle.nw_matrix(a_s, b_s)[len(a_s), len(b_s)])
-            assert sc >= full
-
-
-def test_auto_routes_vmem_heavy_buckets_to_row(monkeypatch):
-    """resolve("auto") must fall back to the row kernel when the diag
-    kernel's q/t VMEM blocks exceed the scoped budget (the round-3/4
-    pipeline/correction compile crash), with decode following the tb
-    layout.  Forced here by shrinking the budget."""
-    import numpy as np
-    import claragenomicsanalysis_tpu.ops.nw_diag_pallas as nd
-    from claragenomicsanalysis_tpu.ops.banded import resolve
-    from claragenomicsanalysis_tpu.utils.genomeutils import (
-        encode, generate_random_genome, mutate_sequence)
-
-    # real-shape arithmetic: the measured OOM bucket must NOT fit, the
-    # pileup-scale bucket must
-    assert nd.vmem_block_bytes(8192, 8192, 128) > nd.VMEM_BLOCK_BUDGET
-    assert nd.vmem_block_bytes(4096, 4096, 64) <= nd.VMEM_BLOCK_BUDGET
-
-    rng = np.random.default_rng(5)
-    B, Lq, r = 8, 128, 16
-    q = np.full((B, Lq), -1, np.int8)
-    t = np.full((B, Lq), -1, np.int8)
-    qlen = np.zeros(B, np.int32)
-    tlen = np.zeros(B, np.int32)
-    for i in range(B):
-        a = generate_random_genome(100, rng)
-        b = mutate_sequence(a, 8, rng)[:Lq]
-        q[i, : len(a)] = encode(a)
-        t[i, : len(b)] = encode(b)
-        qlen[i], tlen[i] = len(a), len(b)
-
-    _, nw_row, dec_row = resolve("pallas-row")
-    _, tb_w = nw_row(q, qlen, t, tlen, r)
-    want = dec_row(tb_w, qlen, tlen, r)
-
-    monkeypatch.setattr(nd, "VMEM_BLOCK_BUDGET", 1)
-    kind, nw, dec = resolve("pallas")      # auto's kernel branch off-TPU
-    scores, tb = nw(q, qlen, t, tlen, r)
-    assert tb.shape == tb_w.shape          # row layout chosen
-    got = dec(tb, qlen, tlen, r)
-    assert got == want
+def test_radius_bounds():
+    q = np.zeros((1, 8), np.int8)
+    n = np.ones(1, np.int32)
+    with pytest.raises(ValueError):
+        banded_nw_diag_pallas(q, n, q, n, MAX_RADIUS + 1, interpret=True)

@@ -170,6 +170,20 @@ def test_routed_chain_overflow_flag(rng):
     assert overflow
 
 
+@pytest.mark.parametrize("rep", [1, 8])
+def test_default_anchor_cap_comes_from_bufferplan(rng, monkeypatch, rep):
+    """map_all_vs_all's default anchor cap is core.bufferplan's
+    device-derived capacity, on the 1-device and the rep-sharded path."""
+    from claragenomicsanalysis_tpu.core.status import StatusType
+    from claragenomicsanalysis_tpu.models import mapper
+    p = _parser(_sim_reads(rng, n=10))
+    mesh = make_mesh(data=1, rep=rep) if rep > 1 else None
+    assert map_all_vs_all(p, CFG, mesh=mesh).statuses == [StatusType.SUCCESS]
+    monkeypatch.setattr(mapper, "anchor_capacity", lambda: 64)
+    assert (map_all_vs_all(p, CFG, mesh=mesh).statuses
+            == [StatusType.EXCEEDED_MAX_ANCHORS])
+
+
 def test_routed_chain_unpacked_index_long_reads(rng):
     """Review regression: reads >= 64 KiB build an UNPACKED index (no
     'first_read'/'packed' arrays) — the routed mesh path must handle it,

@@ -98,10 +98,10 @@ def test_hirschberg_routes_long_pairs_to_sp(rng, monkeypatch):
 
     real_myers = hirschberg.myers_bottom_row
 
-    def guarded(q, qlen, t, tlen):
+    def guarded(q, qlen, t, tlen, *args):
         assert t.shape[1] < SP_MIN, (
-            "single-chip Myers used for a level the sp path must own")
-        return real_myers(q, qlen, t, tlen)
+            "single-device Myers used for a level the sp path must own")
+        return real_myers(q, qlen, t, tlen, *args)
 
     monkeypatch.setattr(hirschberg, "myers_bottom_row", guarded)
     cfg = AlignerConfig(max_query_length=2048, max_target_length=2048,
@@ -117,26 +117,28 @@ def test_hirschberg_routes_long_pairs_to_sp(rng, monkeypatch):
 
 
 def test_hirschberg_auto_sp_threshold(rng, monkeypatch):
-    """VERDICT r2 #7: with an sp-capable mesh and NO manual sp_min_len the
-    VMEM-derived threshold (core.bufferplan.myers_max_query_len, shrunk
-    here via CGA_VMEM_BUDGET_BYTES) routes long levels to the ring
-    automatically; single-chip Myers never sees a level at/over it."""
+    """With an sp-capable mesh and NO manual sp_min_len the
+    device-memory-derived threshold (core.bufferplan.myers_max_query_len,
+    shrunk here by a small device_memory_bytes) routes long levels to the
+    ring automatically; single-device Myers never sees a level at/over
+    it."""
     from claragenomicsanalysis_tpu.align import hirschberg
-    from claragenomicsanalysis_tpu.core.bufferplan import myers_max_query_len
+    from claragenomicsanalysis_tpu.core import bufferplan
     from claragenomicsanalysis_tpu.core.config import AlignerConfig
 
-    monkeypatch.setenv("CGA_VMEM_BUDGET_BYTES", str(7 * 8 * 128 * 4 * 16))
-    assert myers_max_query_len() == 512
+    monkeypatch.setattr(bufferplan, "device_memory_bytes",
+                        lambda: 512 * 4 * bufferplan.MYERS_LEVEL_BYTES_PER_BASE)
+    assert bufferplan.myers_max_query_len() == 512
 
     a = generate_random_genome(1500, rng)
     b = mutate_sequence(a, 60, rng)
     mesh = make_mesh(data=1, rep=1, sp=8)
     real_myers = hirschberg.myers_bottom_row
 
-    def guarded(q, qlen, t, tlen):
+    def guarded(q, qlen, t, tlen, *args):
         assert max(q.shape[1], t.shape[1]) < 512, (
-            "single-chip Myers used for a level the auto sp path must own")
-        return real_myers(q, qlen, t, tlen)
+            "single-device Myers used for a level the auto sp path must own")
+        return real_myers(q, qlen, t, tlen, *args)
 
     monkeypatch.setattr(hirschberg, "myers_bottom_row", guarded)
     cfg = AlignerConfig(max_query_length=2048, max_target_length=2048,

@@ -6,71 +6,37 @@ entire stdout to the committed golden file; any semantic drift in kernels,
 tie-breaks, sort orders or filters fails these first.
 """
 
-import contextlib
-import io
-import os
-
-import pytest
-
-from claragenomicsanalysis_tpu.cli import main
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DATA = os.path.join(ROOT, "data")
-
-
-def _run(argv) -> str:
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        assert main(argv) == 0
-    return buf.getvalue()
-
-
-def _golden(name) -> str:
-    with open(os.path.join(DATA, "golden", name)) as f:
-        return f.read()
+from claragenomicsanalysis_tpu.bench.samples import golden, run_case
 
 
 def test_sample_align_golden():
-    out = _run(["align", f"{DATA}/sample_queries.fasta",
-                f"{DATA}/sample_targets.fasta", "--band-radius", "64"])
-    assert out == _golden("sample_align.txt")
+    assert run_case("align")
 
 
 def test_sample_poa_golden():
-    out = _run(["poa", f"{DATA}/sample-windows.txt"])
-    assert out == _golden("sample_consensus.txt")
+    assert run_case("poa")
 
 
 def test_sample_poa_msa_golden():
-    out = _run(["poa", f"{DATA}/sample-windows.txt", "--msa"])
-    assert out == _golden("sample_msa.txt")
-
-
-MAP_ARGS = ["-k", "15", "-w", "5", "--min-overlap-len", "100",
-            "--min-overlap-fraction", "0.3", "--min-bases-per-residue", "500"]
+    assert run_case("poa_msa")
 
 
 def test_sample_map_golden():
-    out = _run(["map", f"{DATA}/sample_reads.fasta"] + MAP_ARGS)
-    assert out == _golden("sample_overlaps.paf")
+    assert run_case("map")
 
 
 def test_sample_map_query_vs_target_golden():
-    out = _run(["map", f"{DATA}/sample_reads.fasta",
-                f"{DATA}/sample_targets.fasta"] + MAP_ARGS)
-    assert out == _golden("sample_qt.paf")
+    assert run_case("map_qt")
 
 
 def test_sample_pipeline_golden():
-    out = _run(["pipeline", f"{DATA}/sample_reads.fasta"] + MAP_ARGS
-               + ["--band-radius", "256"])
-    assert out == _golden("sample_pipeline.paf")
+    assert run_case("pipeline")
 
 
 def test_pipeline_cigars_are_exact():
     """cg:Z spans must re-derive: CIGAR ops consume exactly the PAF spans."""
     import re
-    for line in _golden("sample_pipeline.paf").splitlines():
+    for line in golden("pipeline").splitlines():
         cols = line.split("\t")
         cg = [c for c in cols if c.startswith("cg:Z:")]
         assert cg, line
@@ -89,5 +55,4 @@ def test_pipeline_cigars_are_exact():
 def test_sample_correct_golden():
     """BASELINE config #5 anchor: the read-correction CLI end-to-end on the
     bundled reads, byte-for-byte (map -> windows -> POA polish)."""
-    out = _run(["correct", f"{DATA}/sample_reads.fasta"] + MAP_ARGS)
-    assert out == _golden("sample_corrected.fasta")
+    assert run_case("correct")
